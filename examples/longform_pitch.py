@@ -7,16 +7,8 @@ size 64 its steps amortize across utterances, but a SINGLE long stream
 (audiobook, meeting, broadcast) has no batch dimension to hide behind.
 `viterbi_block=` opts into the blocked warm-up Viterbi: time chunks are
 solved in parallel with zero-emission-padded context, cutting the
-sequential chain from T to block + 2*warm steps.  Since r4 the chunk
-axis additionally fills the Pallas Viterbi kernel's 128 batch lanes
-(`auto` backend on TPU routes there) — measured on v5e at B=1 x 6 min
-(bench/ab_viterbi.json): exact scan 3,568 -> blocked XLA 14,332 ->
-blocked kernel **176,285 audio-sec/s** (49x the exact scan).  The r5
-block/warm sweep (bench/ab_longform.json) moved the END-TO-END rate
-from 90.8k (block 256/warm 128) to **153.0k at block 320/warm 64** —
-112 chunks of a 6-min stream fill the kernel's 128 lanes at 1.4x warm
-overhead; the voiced-frame f0 deviation stays <= 0.05 Hz at every
-swept setting.
+sequential chain from T to block + 2*warm steps.  Its speed on the GPU
+is not measured yet.
 
 Contract (docs/conventions.md): the blocked path may deviate from the
 exact one ONLY on zero-voicing-evidence silence frames; every frame
@@ -60,17 +52,11 @@ def main():
     ap.add_argument("wav", nargs="?", help="input WAV (else synthetic)")
     ap.add_argument("--minutes", type=float, default=2.0)
     ap.add_argument("--block", type=int, default=320,
-                    help="blocked-Viterbi chunk frames (320/64 is the "
-                         "measured e2e winner on v5e, "
-                         "bench/ab_longform.json)")
+                    help="blocked-Viterbi chunk frames")
     ap.add_argument("--warm", type=int, default=64)
     ap.add_argument("--nccf-chunk", type=int, default=0,
                     help="chunked NCCF (frames per chunk folded into the "
-                         "batch axis; 0 = off, the TPU default — a "
-                         "measured NEGATIVE there, 10x slower than the "
-                         "unchunked kernel whose grid already fills from "
-                         "the time axis; helps only the CPU/XLA path. "
-                         "bench/ab_longform.json)")
+                         "batch axis; 0 = off)")
     args = ap.parse_args()
 
     if args.wav:

@@ -12,20 +12,11 @@ The full low-latency serving chain (VERDICT r2 #7):
 - each session runs a bounded-latency pitch tracker (`OnlinePitch`,
   delayed Viterbi) on the same raw audio.
 
-Latency budget per emitted frame (docs/performance.md "Serving latency
-budget"): MFCC+CMVN rows finalize as soon as their last sample arrives
+Latency budget per emitted frame: MFCC+CMVN rows finalize as soon as their last sample arrives
 (chunk length + one dispatch); pitch rows trail by `delay` frames
 (default 50 = 500 ms at 10 ms hop) plus the resampler group delay.
 
     python examples/serving_session.py a.wav b.wav [...]   (>=1 WAVs)
-
-Throughput mode (r4): ``--fused K`` steps every session K chunks at a
-time through the fused Pallas serving path
-(`process_chunks_batch_fused`: the v5 kernel over each session's
-carry-prefixed K-chunk span — measured 1.46x the scan path at 64x15,
-bench/ab_streaming.json) at the cost of K-1 extra chunk-times of
-latency.  The contiguous valid-prefix frame layout it emits feeds the
-causal CMVN unchanged.
 """
 
 import sys
@@ -53,14 +44,8 @@ def online_cmvn_batch_step(cstates, feats, n_valid, window,
 
 
 def main():
-    argv = sys.argv[1:]
-    K = 1
-    if "--fused" in argv:
-        i = argv.index("--fused")
-        K = int(argv[i + 1])
-        argv = argv[:i] + argv[i + 2:]
-    paths = argv
-    assert paths, "usage: serving_session.py [--fused K] wav [wav ...]"
+    paths = sys.argv[1:]
+    assert paths, "usage: serving_session.py wav [wav ...]"
     sigs, sr = [], None
     for p in paths:
         x, r = wav.read_wav(p)
@@ -83,30 +68,20 @@ def main():
 
     feats_out = [[] for _ in range(B)]
     pitch_out = [[] for _ in range(B)]
-    # fused steps advance K chunks at a time; the trailing n_steps % K
-    # chunks fall back to single-chunk steps so no audio is dropped
-    schedule = ([(k, K) for k in range(0, n_steps - n_steps % K, K)]
-                + [(k, 1) for k in range(n_steps - n_steps % K, n_steps)])
-    for k, kk in schedule:
-        if kk == 1:
-            chunks = np.stack([s[k * C:(k + 1) * C] for s in sigs])
-            st, feats, nv = streaming.process_chunk_batch_jit(
-                st, jnp.asarray(chunks), cfg)      # ONE dispatch, B sessions
-            flat = chunks
-        else:
-            flat = np.stack([s[k * C:(k + kk) * C] for s in sigs])
-            st, feats, nv = streaming.process_chunks_batch_fused_jit(
-                st, jnp.asarray(flat.reshape(B, kk, C)), cfg)
+    for k in range(n_steps):
+        chunks = np.stack([s[k * C:(k + 1) * C] for s in sigs])
+        st, feats, nv = streaming.process_chunk_batch_jit(
+            st, jnp.asarray(chunks), cfg)          # ONE dispatch, B sessions
         cst, normed = online_cmvn_batch_step(cst, feats, nv, window)
         nv_np = np.asarray(nv)
         normed_np = np.asarray(normed)
         for b in range(B):
             feats_out[b].append(normed_np[b, : nv_np[b]])
-            pitch_out[b].append(trackers[b].feed(flat[b]))
+            pitch_out[b].append(trackers[b].feed(chunks[b]))
         done = sum(len(f[-1]) for f in feats_out)
         lag = [sum(len(r) for r in feats_out[b])
                - sum(len(r) for r in pitch_out[b]) for b in range(B)]
-        print(f"t={100 * (k + kk):6d} ms  +{done} cepstral rows this step; "
+        print(f"t={100 * (k + 1):6d} ms  +{done} cepstral rows this step; "
               f"pitch trails by {lag} frames (delayed Viterbi)")
     for b in range(B):
         pitch_out[b].append(trackers[b].flush())

@@ -1,10 +1,9 @@
-"""mfcc_tpu — a TPU-native speech feature-extraction framework.
+"""mfcc_tpu — a speech feature-extraction framework on JAX, run on GPUs.
 
-A from-scratch JAX/XLA/Pallas re-imagining of the capabilities surveyed in
+A from-scratch JAX/XLA re-imagining of the capabilities surveyed in
 SURVEY.md: the full MFCC front-end (framing/windowing, GEMM-native real
 DFT/STFT, mel filterbank, log compression, DCT-II cepstra) plus ragged
-batching, streaming, multi-host data parallelism with global CMVN, and
-hand-written Pallas kernels for the hot path.
+batching, streaming, and multi-device data parallelism with global CMVN.
 
 Quick start::
 

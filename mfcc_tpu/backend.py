@@ -1,69 +1,19 @@
 """Execution backend registry.
 
-The reference declares a multi-target enum and implements one target
-(``BuildTargetType``, /root/reference/src/mfcc/mfcc.h:15-21, with only
-X86_64 functional).  This framework keeps the same "declared targets, one
-golden path per device" shape but makes every entry real:
+- ``xla``  — hop-block GEMM jnp pipeline: the one path, and the reference
+             any future kernel is tested against
+- ``auto`` — the measured winner, ``xla``
 
-- ``pallas``  — fused Pallas/Mosaic kernel (primary on TPU): the
-                zero-prep raw-audio kernel (kernels/fused_raw) when the
-                config is eligible, else the radix-2 DIT kernel
-                (kernels/fused_dit), else the direct hop-block kernel
-                (fused_mfcc)
-- ``xla``     — hop-block GEMM jnp pipeline (runs everywhere; the
-                reference path that everything is tested against)
-- ``auto``    — the measured winner: pallas on TPU when the raw or DIT
-                kernel is eligible, xla otherwise
-
-Selection is a static jit argument, so each backend compiles its own
-specialized program.
+A hand-written kernel joins this registry only if it beats ``xla`` end to
+end on the GPU (docs/kernels.md).  Selection is a static jit argument.
 """
 
 from __future__ import annotations
 
-import jax
-
-BACKENDS = ("auto", "xla", "pallas")
-
-
-def kernel_precision_supported(cfg) -> bool:
-    """Mosaic's in-kernel dot lowering supports DEFAULT and HIGHEST but
-    NOT HIGH (bf16x3) — measured r4: `NotImplementedError: Unsupported
-    dot precision: HIGH` at lowering.  matmul_precision="high" configs
-    therefore run the XLA path, which honors bf16x3 (the r1-measured
-    fast mode)."""
-    return getattr(cfg, "matmul_precision", "highest") != "high"
+BACKENDS = ("auto", "xla")
 
 
 def resolve(name: str = "auto", cfg=None) -> str:
     if name not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {name!r}")
-    if name == "pallas" and cfg is not None and \
-            not kernel_precision_supported(cfg):
-        return "xla"
-    if name == "auto":
-        # On-device A/B, v5e medians, scan protocol (bench/ab_backend.json
-        # r3): v5 merged raw-DIT 431.7k, v4 raw-DIT 411.0k, v3 raw 371.4k,
-        # DIT kernel 322.1k, XLA hop-block 260.3k audio-sec/s/chip — all
-        # at <= 2.8e-6 vs the oracle.  auto -> pallas where any raw/DIT
-        # kernel is eligible (models/mfcc.py picks v5-merged for cepstral
-        # and bounded-range log-mel outputs, v3 for unbounded log-mel —
-        # valley accuracy, docs/conventions.md); the v1 direct kernel
-        # LOSES to XLA, so configs none of them can take (odd hop,
-        # n_fft % 4 != 0, half-rate lane-phase period > 16) stay on the
-        # XLA path.
-        if (jax.default_backend() == "tpu" and cfg is not None
-                and kernel_precision_supported(cfg)):
-            from .ops.kernels import fused_dit, fused_raw, fused_raw_dit
-            if (fused_raw.raw_kernel_eligible(cfg)
-                    or fused_raw_dit.raw_dit_kernel_eligible(cfg)
-                    or fused_dit.dit_kernel_eligible(cfg)):
-                return "pallas"
-        return "xla"
-    return name
-
-
-def pallas_interpret() -> bool:
-    """Interpret-mode fallback so the pallas backend also runs on CPU
-    (the sanitizer configuration from SURVEY.md §5)."""
-    return jax.default_backend() != "tpu"
+    return "xla"

@@ -12,14 +12,16 @@ from __future__ import annotations
 import argparse
 import sys
 
+from .backend import BACKENDS
 from .config import FeatureConfig
 from .runner import RunnerOptions, run
+from .utils import compile_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mfcc_tpu",
-        description="TPU-native MFCC / log-mel feature extraction")
+        description="MFCC / log-mel / PLP / spectrogram feature extraction")
     p.add_argument("input", help=".wav file, directory, or .txt listing")
     p.add_argument("-o", "--out", default="features", help="output directory")
     p.add_argument("--batch-size", type=int, default=16)
@@ -27,8 +29,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ignore existing manifest")
     p.add_argument("--trace-dir", default=None,
                    help="emit a jax.profiler trace here")
-    p.add_argument("--backend", default="auto",
-                   choices=["auto", "xla", "pallas"],
+    p.add_argument("--backend", default="auto", choices=BACKENDS,
                    help="execution backend (see mfcc_tpu/backend.py)")
     p.add_argument("--format", default="npy",
                    choices=["npy", "ark", "htk", "tfrecord"],
@@ -43,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "stream through fixed rows untruncated.  Plain "
                         "MFCC/log-mel/PLP/spectrogram (+ global "
                         "--cmvn); per-piece features are bit-identical "
-                        "to the unpacked pipeline (docs/performance.md)")
+                        "to the unpacked pipeline")
     p.add_argument("--pack-seconds", type=float, default=10.0,
                    help="packed row capacity in seconds")
 
@@ -96,8 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PLP cepstra (bark critical bands + LPC model)")
     f.add_argument("--spectrogram", action="store_true",
                    help="log-power spectrogram output (T, n_fft/2+1) — "
-                        "no mel, no DCT (models/spectrogram.py; kernel "
-                        "route contract 2e-4 in a 50 dB window, "
+                        "no mel, no DCT (models/spectrogram.py; "
+                        "contract 2e-4 in a 50 dB window, "
                         "docs/conventions.md)")
     f.add_argument("--n-bark", type=int, default=21,
                    help="PLP critical-band filter count")
@@ -182,6 +183,7 @@ def main(argv=None) -> int:
                          "use --cmvn-sliding/--cmvn-online or a separate "
                          "VAD pass")
     cfg = config_from_args(a)
+    compile_cache.enable()
     opts = RunnerOptions(
         out_dir=a.out, batch_size=a.batch_size, logmel=a.logmel, plp=a.plp,
         spectrogram=a.spectrogram,

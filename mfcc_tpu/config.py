@@ -50,9 +50,8 @@ class FeatureConfig:
     #              edge duplication (Kaldi ExtractWindow; librosa
     #              pad_mode="symmetric" class).  Implemented as a reflect
     #              pad of the raw (post-dither) signal followed by the
-    #              exact "valid" pipeline, so every backend — XLA,
-    #              Pallas kernels, all feature families — inherits it
-    #              unchanged.  Pre-emphasis stays this framework's
+    #              exact "valid" pipeline, so every feature family
+    #              inherits it unchanged.  Pre-emphasis stays this framework's
     #              signal-level convention (applied to the padded
     #              signal), a documented deviation from Kaldi's
     #              per-window pre-emphasis (docs/conventions.md).
@@ -86,8 +85,8 @@ class FeatureConfig:
     # -> scaled by 1/a in the mid band -> identity again at fmax).  1.0
     # disables.  vtln_high < 0 means "offset from fmax" (so the default
     # -500 tracks the Nyquist).  Warping only reshapes the constant
-    # filterbank matrix, so every backend (XLA, Pallas kernels, streaming)
-    # inherits it with zero device-side cost.
+    # filterbank matrix, so every path (batch, streaming) inherits it
+    # with zero device-side cost.
     vtln_warp: float = 1.0
     vtln_low: float = 100.0
     vtln_high: float = -500.0
@@ -97,8 +96,8 @@ class FeatureConfig:
     # optional per-frame RELATIVE floor: mel energies below
     # max_over_bands / 10^(dynamic_range_db/10) are floored.  Caps the
     # dynamic range the log stage must resolve — deep spectral valleys are
-    # where the MXU's bf16x6 f32 emulation (~1.4e-4 relative, measured)
-    # exceeds the 1e-4 feature tolerance on pathological synthetic tones.
+    # where float32 summation error exceeds the 1e-4 feature tolerance
+    # (docs/conventions.md accuracy policy).
     # None = unlimited range (classic definition, the default).
     dynamic_range_db: Optional[float] = None
     lifter: int = 0                # 0 disables cepstral liftering
@@ -116,38 +115,30 @@ class FeatureConfig:
     # --- numerics --------------------------------------------------------
     compute_dtype: str = "float32"   # "float32" | "bfloat16" (matmul inputs)
     accum_dtype: str = "float32"     # accumulation dtype (keep float32)
-    # MXU f32-emulation passes.  Measured on v5e (batch 64x10 s MFCC-13;
-    # r4 ladder in bench/ab_precision.json, each precision on the
-    # backend that actually runs it):
-    # "highest" (bf16x6): 2.7e-6 err — the contract default
-    #           (v5 kernel 375k / XLA 239k audio-sec/s that session)
-    # "high"    (bf16x3): 2.8e-4 err, 281k — XLA ONLY: Mosaic has no
-    #           in-kernel HIGH dot lowering, so backend resolution
-    #           routes "high" configs to the XLA path (backend.py)
-    # "default" (one bf16 pass): ~5e-2 err, 549k through the v5 kernel
-    #           (1.46x the contract mode) — for NN-training features
-    #           that tolerate bf16-class spectra
-    # Only "highest" meets the 1e-4 contract (the x3 scheme's dropped
-    # lo*lo term surfaces through log in spectral valleys).
+    # Precision of the spectral GEMMs (jax.lax.Precision).  On an H100
+    # (chip_smoke.py, MFCC-13 at (64, 10 s) vs the float64 oracle):
+    # "highest": IEEE float32 — 1.84e-5 max abs error, the contract
+    #            default
+    # "high":    TF32 on the GPU — 1.12e-2 error
+    # "default": TF32 on the GPU — 1.12e-2 error
+    # Only "highest" meets the 1e-4 contract; the others are for
+    # consumers that tolerate TF32-class spectra.
     matmul_precision: str = "highest"
     # Batch-path DFT factorization (ops/spectrum.py):
     #   "direct"  window-folded hop-block GEMM chain, no frame
-    #             materialization — the measured v5e winner (289.7k
-    #             audio-sec/s/chip median; bench/ab_dft.json)
-    #   "directc" direct DFT over concat-materialized frames (253.2k)
+    #             materialization (the default)
+    #   "directc" direct DFT over concat-materialized frames
     #   "dit2"    radix-2 decimation-in-time hop-block chain — two
     #             half-length real DFTs (one per sample parity) +
-    #             elementwise twiddle combine, 2.0x fewer MACs (234.1k:
-    #             MAC savings < relayout cost in XLA)
-    #   "dit2c"   radix-2 DIT over concat frames (267.4k)
+    #             elementwise twiddle combine, 2.0x fewer MACs
+    #   "dit2c"   radix-2 DIT over concat frames
     #   "dit4c"   two-stage Cooley-Tukey (radix-4 DIT) over concat
     #             frames — 4 quarter-length real DFTs + two twiddle
-    #             levels, 3.3x fewer true MACs than direct (measured on
-    #             v5e: the extra combine/relayout passes cost more than
-    #             the MACs buy in XLA; see bench/ab_dft.json)
+    #             levels, 3.3x fewer true MACs than direct
     # All are numerically equivalent at HIGHEST precision (oracle-parity
-    # tested, tests/test_spectrum_algorithms.py).  "auto" resolves to the
-    # measured winner, "direct" — see resolve_dft_algorithm.  Streaming
+    # tested, tests/test_spectrum_algorithms.py).  "auto" resolves to
+    # "direct" — see resolve_dft_algorithm; which one is fastest on the
+    # GPU is not measured yet.  Streaming
     # uses the frames path (same direct bases), so batch-vs-streaming
     # parity is at f32 roundoff under auto (tests/test_streaming.py).
     dft_algorithm: str = "auto"
@@ -320,7 +311,7 @@ class PitchConfig:
 
     NCCF + Viterbi pitch tracking in the Kaldi style (Ghahremani et al.,
     "A pitch extraction algorithm tuned for ASR", 2014), with conventions
-    adapted to this framework's TPU-native stages — exact definitions in
+    adapted to this framework's GEMM-native stages — exact definitions in
     docs/conventions.md.  A separate dataclass (not FeatureConfig fields)
     because pitch is an independent front-end with its own contract and
     growing FeatureConfig renames every existing config_hash.

@@ -20,16 +20,7 @@ from .mfcc import (frame_lengths, frame_mask,  # noqa: F401 (re-export)
 def log_mel(x: jnp.ndarray, cfg: FeatureConfig,
             backend: str = "auto") -> jnp.ndarray:
     """(n_samples,) -> (T, n_mels[*3]) log-mel features."""
-    from .. import backend as backend_lib
-    from . import mfcc as mfcc_mod
     x, cfg = framing.resolve_frame_mode_static(x, cfg)
-    if (x.ndim == 1
-            and backend_lib.resolve(backend, cfg) == "pallas"
-            and cfg.num_frames(x.shape[-1]) > mfcc_mod.LONG_ROUTE_FRAMES):
-        # single long signal: the blocked construction (bit-identical;
-        # the single-row kernel path hits the long-row relayout
-        # pathology — models/mfcc.mfcc_long docstring)
-        return mfcc_mod.mfcc_long(x, cfg, backend, apply_dct=False)
     return _features_from_audio(x, cfg, backend=backend, apply_dct=False)
 
 
@@ -41,16 +32,9 @@ def log_mel_batch(x: jnp.ndarray, sample_lengths: jnp.ndarray,
     x, sample_lengths, cfg = framing.resolve_frame_mode(
         x, sample_lengths, cfg)
     flens = frame_lengths(sample_lengths, cfg)
-    from .. import backend as backend_lib
-    from . import mfcc as mfcc_mod
-    if (backend_lib.resolve(backend, cfg) == "pallas"
-            and cfg.num_frames(x.shape[-1]) > mfcc_mod.LONG_ROUTE_FRAMES):
-        feat = mfcc_mod._blocked_from_audio(
-            x, cfg, flens if cfg.deltas else None, backend, False)
-    else:
-        feat = _features_from_audio(x, cfg,
-                                    lengths=flens if cfg.deltas else None,
-                                    backend=backend, apply_dct=False)
+    feat = _features_from_audio(x, cfg,
+                                lengths=flens if cfg.deltas else None,
+                                backend=backend, apply_dct=False)
     mask = frame_mask(feat.shape[-2], flens)
     feat = jnp.where(mask[..., None], feat, 0.0)
     return feat, flens, mask

@@ -1,17 +1,16 @@
 """The flagship MFCC pipeline.
 
 Composes the ops stages frame -> power -> log-mel -> DCT under a single
-``jax.jit`` so XLA fuses the elementwise stages into the GEMMs — the TPU
-analog of the reference compiler's fixed lex->parse->codegen driver
-(``/root/reference/src/mfcc/main.c:72-107``), with the same strict
-inter-stage data contracts but data-parallel over frames and utterances.
+``jax.jit`` so XLA fuses the elementwise stages into the GEMMs, with
+strict inter-stage data contracts, data-parallel over frames and
+utterances.
 
 Two entry points:
 
 - :func:`mfcc` — one utterance, shape-static.
 - :func:`mfcc_batch` — padded ragged batch + per-utterance sample lengths;
   returns features, true frame counts, and a frame validity mask.  Padded
-  frames are computed-then-masked (branch-free; the MXU doesn't care) and
+  frames are computed-then-masked (branch-free) and
   zeroed so downstream masked reductions (CMVN) are exact.
 """
 
@@ -46,95 +45,40 @@ def _features_from_audio(x: jnp.ndarray, cfg: FeatureConfig,
                          lengths: jnp.ndarray | None = None,
                          backend: str = "auto",
                          apply_dct: bool = True) -> jnp.ndarray:
-    """Audio-based core (batch path).
-
-    backend "xla": hop-block GEMM decomposition, no frame materialization
-    (spectrum.power_spectrum_blocked).  backend "pallas": single fused
-    kernel — the zero-prep raw-audio kernel (ops/kernels/fused_raw,
-    pre-emphasis inside the kernel) when the config is eligible, else
-    XLA preemph + the DIT/direct kernel; interpret-mode off-TPU.
-    """
+    """Audio-based core (batch path): hop-block GEMM decomposition, no
+    frame materialization (spectrum.power_spectrum_blocked)."""
     if cfg.dither > 0.0:
         from ..ops import dither as dither_op
         with jax.named_scope("dither"):
             x = dither_op.apply_jax(x, cfg)
-    if backend_lib.resolve(backend, cfg) == "pallas":
-        from ..ops import kernels
-        squeeze = x.ndim == 1
-        xb = x[None, :] if squeeze else x
-        # Kernel choice (bench/ab_backend.json r3, v5e medians): the
-        # raw-DIT kernel wins for CEPSTRAL outputs — v5 merged-phase
-        # variant 431.7k audio-sec/s vs v4 per-phase 411.0k (merged=True
-        # routes to ONE (P*fpp, L) GEMM per parity when the plan allows;
-        # ineligible plans silently keep the per-phase path, same math);
-        # log-mel outputs stay on the v3 raw kernel (380.1k) because the
-        # DIT twiddle combine costs one extra f32 rounding stage in deep
-        # spectral valleys (docs/conventions.md accuracy policy) and the
-        # DCT that would wash it out is skipped — EXCEPT when the caller
-        # bounds the dynamic range to <= 50 dB, where the raw-DIT
-        # kernel's valley error is test-pinned at 5.3e-5 (< the 1e-4
-        # contract; tests/test_kernels.py raw_dit logmel test) and its
-        # throughput win applies to log-mel too.
-        use_dit = apply_dct or (cfg.dynamic_range_db is not None
-                                and cfg.dynamic_range_db <= 50.0)
-        if use_dit and kernels.fused_raw_dit.raw_dit_kernel_eligible(cfg):
-            with jax.named_scope("fused_raw_dit_kernel"):
-                feat = kernels.fused_raw_dit_route(
-                    xb, cfg, apply_dct=apply_dct)
-        elif kernels.fused_raw.raw_kernel_eligible(cfg):
-            with jax.named_scope("fused_raw_kernel"):
-                feat = kernels.fused_raw.fused_features_raw(
-                    xb, cfg, apply_dct=apply_dct,
-                    interpret=backend_lib.pallas_interpret())
-        else:
-            with jax.named_scope("preemph"):
-                yb = framing.preemphasize(xb, cfg)
-            with jax.named_scope("fused_mfcc_kernel"):
-                feat = kernels.fused_features_auto(
-                    yb, cfg, apply_dct=apply_dct,
-                    interpret=backend_lib.pallas_interpret())
-        if squeeze:
-            feat = feat[0]
-    else:
-        with jax.named_scope("preemph"):
-            y = framing.preemphasize(x, cfg)
-        with jax.named_scope("stft_power"):
-            p_lo, p_hi = spectrum.power_spectrum_split(y, cfg)
-        with jax.named_scope("mel_log"):
-            logmel = mel.log_mel_energies_split(p_lo, p_hi, cfg)
-        with jax.named_scope("dct"):
-            feat = dct.cepstra(logmel, cfg) if apply_dct else logmel
-        if cfg.append_energy and apply_dct:
-            e = spectrum.log_energy_blocked(y, cfg)
-            feat = feat.at[..., 0].set(e)
+    backend_lib.resolve(backend, cfg)          # rejects unknown names
+    with jax.named_scope("preemph"):
+        y = framing.preemphasize(x, cfg)
+    with jax.named_scope("stft_power"):
+        p_lo, p_hi = spectrum.power_spectrum_split(y, cfg)
+    with jax.named_scope("mel_log"):
+        logmel = mel.log_mel_energies_split(p_lo, p_hi, cfg)
+    with jax.named_scope("dct"):
+        feat = dct.cepstra(logmel, cfg) if apply_dct else logmel
+    if cfg.append_energy and apply_dct:
+        e = spectrum.log_energy_blocked(y, cfg)
+        feat = feat.at[..., 0].set(e)
     if cfg.deltas:
         with jax.named_scope("deltas"):
             feat = deltas_op.append_deltas(feat, cfg, lengths)
     return feat
 
 
-# Auto route: signals longer than this many frames go through the
-# blocked row construction when the kernel path is resolved
-# (bit-identical; long rows hit the wrapper's long-row relayout
-# pathology — measured at B=1 x 6 min on v5e: single-row kernel 66.9k
-# vs blocked 340.5k audio-sec/s, docs/performance.md "Long-row
-# shapes").  4096 frames (~41 s) is a conservative threshold: the
-# pathology ramps from ~20 s rows.
-LONG_ROUTE_FRAMES = 4096
-_LONG_ROW_FRAMES = 511     # measured winner; K+1 must not straddle tiles
-
-
 def _blocked_from_audio(x: jnp.ndarray, cfg: FeatureConfig,
-                        lengths: jnp.ndarray | None,
                         backend: str, apply_dct: bool,
-                        row_frames: int = _LONG_ROW_FRAMES) -> jnp.ndarray:
-    """(B, N) -> (B, T, F) via overlapping K-frame rows (B*C, W) — the
-    long-row workaround shared by mfcc_long and the batched auto route.
+                        row_frames: int) -> jnp.ndarray:
+    """(N,) -> (T, F) via overlapping K-frame rows (C, W) — the row
+    construction behind mfcc_long.
     Bit-identical to _features_from_audio: hop-aligned rows (static
     reshape + shifted-slice concat, NO gather), one dropped context slot
-    per row, true pre-emphasis predecessors (row 0 of each signal
-    carries the HTK x[-1] := x[0] patch), dither before blocking,
-    deltas after reassembly.  cfg must be valid-mode."""
+    per row, true pre-emphasis predecessors (row 0 carries the HTK
+    x[-1] := x[0] patch), dither before blocking, deltas after
+    reassembly.  cfg must be valid-mode."""
     from ..ops import deltas as deltas_op
     if cfg.dither > 0.0:
         from ..ops import dither as dither_op
@@ -142,39 +86,23 @@ def _blocked_from_audio(x: jnp.ndarray, cfg: FeatureConfig,
         cfg = cfg.replace(dither=0.0)
     want_deltas = cfg.deltas
     cfg = cfg.replace(deltas=False)
-    B, N = x.shape
+    N = x.shape[0]
     T = cfg.num_frames(N)
     fl, hop = cfg.frame_len, cfg.hop_len
     K = row_frames
     C = -(-T // K)
-    W = K * hop + fl
-    need = C * K * hop + W
-    if B == 1:
-        # 1-D assembly: XLA lowers the (1, N) leading-unit versions of
-        # these concats/slices ~2.6x slower at long N (measured r5:
-        # 834.6k vs 322.9k eq-rate for the assembly alone)
-        x1 = x[0]
-        head = jnp.zeros((hop - 1,), x.dtype)
-        tail = jnp.zeros((max(need - (N + hop), 0),), x.dtype)
-        xp = jnp.concatenate([head, x1[:1], x1, tail])
-        base_b = xp[: C * K * hop].reshape(C, K * hop)
-        ctx = xp[K * hop: (C + 1) * K * hop].reshape(C, K * hop)[:, :fl]
-        rows = jnp.concatenate([base_b, ctx], axis=1)
-    else:
-        # pad + one-element set beats the three-way concat by ~5% at
-        # long rows (probe r5: 489.7k vs 464.5k eq-rate at (8, 60 s))
-        xp = jnp.pad(x, ((0, 0), (hop, max(need - (N + hop), 0))))
-        xp = xp.at[:, hop - 1].set(x[:, 0])   # HTK x[-1] := x[0] patch
-        base_b = xp[:, : C * K * hop].reshape(B, C, K * hop)
-        ctx = xp[:, K * hop: (C + 1) * K * hop].reshape(
-            B, C, K * hop)[:, :, :fl]
-        rows = jnp.concatenate([base_b, ctx], axis=-1).reshape(B * C, W)
+    need = C * K * hop + K * hop + fl
+    head = jnp.zeros((hop - 1,), x.dtype)
+    tail = jnp.zeros((max(need - (N + hop), 0),), x.dtype)
+    xp = jnp.concatenate([head, x[:1], x, tail])
+    base_b = xp[: C * K * hop].reshape(C, K * hop)
+    ctx = xp[K * hop: (C + 1) * K * hop].reshape(C, K * hop)[:, :fl]
+    rows = jnp.concatenate([base_b, ctx], axis=1)
     fr = _features_from_audio(rows, cfg, backend=backend,
-                              apply_dct=apply_dct)      # (B*C, K+1, F)
-    feat = (fr.reshape(B, C, K + 1, -1)[:, :, 1:, :]
-              .reshape(B, C * K, -1)[:, :T])
+                              apply_dct=apply_dct)      # (C, K+1, F)
+    feat = fr[:, 1:, :].reshape(C * K, -1)[:T]
     if want_deltas:
-        feat = deltas_op.append_deltas(feat, cfg, lengths)
+        feat = deltas_op.append_deltas(feat, cfg)
     return feat
 
 
@@ -182,10 +110,6 @@ def mfcc(x: jnp.ndarray, cfg: FeatureConfig,
          backend: str = "auto") -> jnp.ndarray:
     """(n_samples,) PCM in [-1, 1] -> (T, n_feats) features."""
     x, cfg = framing.resolve_frame_mode_static(x, cfg)
-    if (x.ndim == 1
-            and backend_lib.resolve(backend, cfg) == "pallas"
-            and cfg.num_frames(x.shape[-1]) > LONG_ROUTE_FRAMES):
-        return mfcc_long(x, cfg, backend)
     return _features_from_audio(x, cfg, backend=backend)
 
 
@@ -210,8 +134,8 @@ def mfcc_batch(x: jnp.ndarray, sample_lengths: jnp.ndarray,
                cfg: FeatureConfig, backend: str = "auto"):
     """(B, N_pad), (B,) -> ((B, T, n_feats), (B,) frame counts, (B, T) mask).
 
-    Padded-region frames are fully computed then zeroed — keeping every
-    shape static and every op branch-free is the fast path on TPU.
+    Padded-region frames are fully computed then zeroed — every shape
+    stays static and every op branch-free.
 
     x may be int16 PCM (cast to [-1, 1) float on device — halves the
     host->device transfer) or float in [-1, 1].
@@ -221,16 +145,9 @@ def mfcc_batch(x: jnp.ndarray, sample_lengths: jnp.ndarray,
     x, sample_lengths, cfg = framing.resolve_frame_mode(
         x, sample_lengths, cfg)
     flens = frame_lengths(sample_lengths, cfg)
-    if (backend_lib.resolve(backend, cfg) == "pallas"
-            and cfg.num_frames(x.shape[-1]) > LONG_ROUTE_FRAMES):
-        # long buckets: the blocked row construction (bit-identical;
-        # see _blocked_from_audio / docs/performance.md long-row note)
-        feat = _blocked_from_audio(
-            x, cfg, flens if cfg.deltas else None, backend, True)
-    else:
-        feat = _features_from_audio(x, cfg,
-                                    lengths=flens if cfg.deltas else None,
-                                    backend=backend)
+    feat = _features_from_audio(x, cfg,
+                                lengths=flens if cfg.deltas else None,
+                                backend=backend)
     mask = frame_mask(feat.shape[-2], flens)
     feat = jnp.where(mask[..., None], feat, 0.0)
     return feat, flens, mask
@@ -280,12 +197,6 @@ def mfcc_batch_packed(x: jnp.ndarray, seg_starts: jnp.ndarray,
     elif family == "plp":
         from . import plp as plp_model
         feat = plp_model._plp_from_audio(x, cfg, backend=backend)
-    elif (backend_lib.resolve(backend, cfg) == "pallas"
-          and cfg.num_frames(x.shape[-1]) > LONG_ROUTE_FRAMES):
-        # large pack capacities: the blocked row construction (content-
-        # transparent and bit-identical, so it composes with packing)
-        feat = _blocked_from_audio(x, cfg, None, backend,
-                                   family == "mfcc")
     else:
         feat = _features_from_audio(x, cfg, backend=backend,
                                     apply_dct=(family == "mfcc"))
@@ -313,17 +224,12 @@ def mfcc_batch_packed_jit(x: jnp.ndarray, seg_starts: jnp.ndarray,
 def mfcc_long(x: jnp.ndarray, cfg: FeatureConfig,
               backend: str = "auto", row_frames: int = 511,
               apply_dct: bool = True) -> jnp.ndarray:
-    """(N,) ONE long signal -> (T, n_feats) at batch-optimal speed.
+    """(N,) ONE long signal -> (T, n_feats) through overlapping rows.
 
-    A single long row is the v5 kernel's worst shape: the wrapper's
-    parity deinterleave (pad + transpose) collapses ~7x once rows grow
-    past a few hundred thousand samples (measured r5 — see
-    docs/performance.md long-row note; the kernel itself is shape-
-    indifferent at ~565k eq-audio-sec/s).  This entry re-views the
-    signal as C overlapping rows of ``row_frames`` frames each (static
-    strided windows, one frame of left context per row — the blocked-
-    Viterbi construction applied to the spectral front end), runs the
-    normal batched pipeline, and reassembles with a reshape.
+    Re-views the signal as C overlapping rows of ``row_frames`` frames
+    each (static strided windows, one frame of left context per row —
+    the blocked-Viterbi construction applied to the spectral front end),
+    runs the normal batched pipeline, and reassembles with a reshape.
 
     BIT-IDENTICAL to mfcc(x): rows are hop-aligned so every frame reads
     the same samples through the same reductions; each row's first
@@ -331,14 +237,8 @@ def mfcc_long(x: jnp.ndarray, cfg: FeatureConfig,
     carries the HTK x[-1] := x[0] patch).  Deltas are applied after
     reassembly (exact); dither is applied to the whole signal before
     row building (positions match the unblocked pipeline); center
-    framing resolves first.
-
-    row_frames sweep on v5e at B=1 x 6 min (r5 session): 127: 289.3k,
-    255: 304.4k, 383: 337.3k, **511: 340.5k (default)**, 1023: 235.5k,
-    2047: 132.1k audio-sec/s — vs 66.9k for the single long row and
-    291.5k for the XLA hop-block path.  Keep row_frames + 1 a multiple
-    of the kernel's 1024-frame tile divisor family (the K+1-frame rows
-    must not straddle a tile: rf=1024 computed 2048 frames/row).
+    framing resolves first.  Whether this beats the single long row on
+    the GPU is not measured.
     """
     if x.dtype == jnp.int16:
         x = x.astype(jnp.float32) * (1.0 / 32768.0)
@@ -351,8 +251,7 @@ def mfcc_long(x: jnp.ndarray, cfg: FeatureConfig,
         if want_deltas:
             feat = deltas_op.append_deltas(feat, cfg)
         return feat
-    return _blocked_from_audio(x[None], cfg, None, backend, apply_dct,
-                               row_frames)[0]
+    return _blocked_from_audio(x, cfg, backend, apply_dct, row_frames)
 
 
 @partial(jax.jit, static_argnames=("cfg", "backend", "row_frames",

@@ -73,7 +73,8 @@ def align_pitch(feat_p: jnp.ndarray, flens_p: jnp.ndarray, T: int):
     last = jnp.maximum(flens_p - 1, 0).astype(jnp.int32)        # (B,)
     onehot = (jnp.arange(Tp, dtype=jnp.int32)[None, :]
               == last[:, None]).astype(feat_p.dtype)
-    lastf = jnp.einsum("bt,btf->bf", onehot, feat_p)[:, None, :]
+    lastf = jnp.einsum("bt,btf->bf", onehot, feat_p,
+                       precision=jax.lax.Precision.HIGHEST)[:, None, :]
     base = (feat_p[:, :T] if T <= Tp else jnp.concatenate(
         [feat_p, jnp.repeat(feat_p[:, -1:], T - Tp, axis=1)], axis=1))
     out = jnp.where(t[None, :, None] > last[:, None, None], lastf, base)

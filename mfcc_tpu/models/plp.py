@@ -3,18 +3,13 @@
 Shares the framing/window/GEMM-DFT front half with the MFCC pipeline,
 then replaces mel/log/DCT with critical-band (bark) analysis, equal
 loudness, cube-root compression, and an all-pole (LPC) cepstral model —
-see ops/plp.py for the TPU mapping and docs/conventions.md for the exact
+see ops/plp.py for the GEMM mapping and docs/conventions.md for the exact
 conventions.  The float64 trust root is oracle.plp.
 
-Backend note (r4): the spectral front half — framing, window-folded DFT,
-bark+equal-loudness band energies, floored log — runs through the SAME
-v5 merged raw-DIT Pallas kernel the MFCC pipeline uses, with the bark
-matrix substituted for mel (``fused_raw_dit(..., projection="bark")``);
-the kernels take an arbitrary constant projection matrix, so PLP
-inherits the measured kernel front end for free.  The back half
-(cube-root loudness, autocorrelation IDFT, Levinson, cepstral recursion)
-operates on the small (B, T, n_bark) tensor and stays XLA.  ``xla``
-backend keeps the hop-block GEMM path everything is tested against.
+The spectral front half — framing, window-folded DFT, bark+equal-loudness
+band energies — shares the MFCC pipeline's hop-block GEMM path; the back
+half (cube-root loudness, autocorrelation IDFT, Levinson, cepstral
+recursion) operates on the small (B, T, n_bark) tensor.
 """
 
 from __future__ import annotations
@@ -24,8 +19,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from ..config import FeatureConfig
 from .. import backend as backend_lib
+from ..config import FeatureConfig
 from ..ops import framing, spectrum, deltas as deltas_op
 from ..ops import plp as plp_op
 from .mfcc import frame_lengths, frame_mask  # noqa: F401 (re-export)
@@ -34,34 +29,20 @@ from .mfcc import frame_lengths, frame_mask  # noqa: F401 (re-export)
 def _plp_from_audio(x: jnp.ndarray, cfg: FeatureConfig,
                     lengths: jnp.ndarray | None = None,
                     backend: str = "auto") -> jnp.ndarray:
-    from ..ops import kernels
+    backend_lib.resolve(backend, cfg)          # rejects unknown names
     if cfg.dither > 0.0:
         from ..ops import dither as dither_op
         with jax.named_scope("dither"):
             x = dither_op.apply_jax(x, cfg)
-    use_kernel = (backend_lib.resolve(backend, cfg) == "pallas"
-                  and kernels.fused_raw_dit.raw_dit_kernel_eligible(cfg))
-    if use_kernel:
-        with jax.named_scope("fused_raw_dit_bark_kernel"):
-            log_bark = kernels.fused_raw_dit_route(
-                x, cfg, apply_dct=False, projection="bark")
-        with jax.named_scope("plp_tail"):
-            feat = plp_op.plp_from_log_bark(log_bark, cfg)
-        if cfg.append_energy:
-            with jax.named_scope("preemph_energy"):
-                y = framing.preemphasize(x, cfg)
-            e = spectrum.log_energy_blocked(y, cfg)
-            feat = feat.at[..., 0].set(e)
-    else:
-        with jax.named_scope("preemph"):
-            y = framing.preemphasize(x, cfg)
-        with jax.named_scope("stft_power"):
-            p_lo, p_hi = spectrum.power_spectrum_split(y, cfg)
-        with jax.named_scope("plp"):
-            feat = plp_op.plp_from_power_split(p_lo, p_hi, cfg)
-        if cfg.append_energy:
-            e = spectrum.log_energy_blocked(y, cfg)
-            feat = feat.at[..., 0].set(e)
+    with jax.named_scope("preemph"):
+        y = framing.preemphasize(x, cfg)
+    with jax.named_scope("stft_power"):
+        p_lo, p_hi = spectrum.power_spectrum_split(y, cfg)
+    with jax.named_scope("plp"):
+        feat = plp_op.plp_from_power_split(p_lo, p_hi, cfg)
+    if cfg.append_energy:
+        e = spectrum.log_energy_blocked(y, cfg)
+        feat = feat.at[..., 0].set(e)
     if cfg.deltas:
         with jax.named_scope("deltas"):
             feat = deltas_op.append_deltas(feat, cfg, lengths)

@@ -5,17 +5,10 @@ The third member of the feature family (MFCC / log-mel / spectrogram):
 as the rest of the pipeline.  Useful for neural front-ends that learn
 their own filterbanks downstream.
 
-Backend note (r4): the kernel route (``auto`` on TPU) runs the v5
-merged raw-DIT Pallas kernel with ``projection="spec"`` — the packed
-conjugate-symmetry |X|^2 vector is floored-logged in-kernel and the bin
-permutation undone by one static wrapper relayout; no projection GEMM
-exists at all.  ``xla`` keeps the hop-block path.  Accuracy: the
-family's 50 dB-window contract is 2e-4 on EITHER backend (raw
-single-bin log is f32-summation-limited: real speech drives the XLA
-path to 1.7e-4 — golden-pinned in tests/test_golden.py — and the
-kernel's DIT combine measures a similar ~1.3e-4 class on noise); below
-the window the valleys are f32-floor-limited on any backend
-(docs/conventions.md accuracy policy).
+Accuracy: the family's contract is 2e-4 inside a 50 dB window (a raw
+single-bin log is f32-summation-limited: real speech drives the path to
+1.7e-4, golden-pinned in tests/test_golden.py); below the window the
+valleys are f32-floor-limited (docs/conventions.md accuracy policy).
 """
 
 from __future__ import annotations
@@ -25,8 +18,8 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from ..config import FeatureConfig
 from .. import backend as backend_lib
+from ..config import FeatureConfig
 from ..ops import framing, spectrum, xmath
 from .mfcc import frame_lengths, frame_mask
 
@@ -34,14 +27,9 @@ from .mfcc import frame_lengths, frame_mask
 def log_spectrogram(x: jnp.ndarray, cfg: FeatureConfig,
                     backend: str = "auto") -> jnp.ndarray:
     """(n_samples,) -> (T, n_bins) floored log power spectrum."""
-    from ..ops import kernels
+    backend_lib.resolve(backend, cfg)          # rejects unknown names
     if x.ndim == 1:  # batch callers resolve the frame mode themselves
         x, cfg = framing.resolve_frame_mode_static(x, cfg)
-    if (backend_lib.resolve(backend, cfg) == "pallas"
-            and kernels.fused_raw_dit.spec_kernel_eligible(cfg)):
-        with jax.named_scope("fused_raw_dit_spec_kernel"):
-            return kernels.fused_raw_dit_route(
-                x, cfg, apply_dct=False, projection="spec")
     y = framing.preemphasize(x, cfg)
     p_lo, p_hi = spectrum.power_spectrum_split(y, cfg)
     power = jnp.concatenate([p_lo, p_hi], axis=-1)

@@ -1,4 +1,4 @@
-"""TPU-native compute stages of the MFCC front-end.
+"""Compute stages of the MFCC front-end.
 
 Stage map (the analog of the reference compiler's lex -> parse -> codegen
 pipeline, ``/root/reference/src/mfcc/main.c:72-107``):
@@ -11,7 +11,6 @@ pipeline, ``/root/reference/src/mfcc/main.c:72-107``):
 - :mod:`deltas`   — time-derivative appends
 - :mod:`resample` — rational sample-rate conversion as one polyphase GEMM
 - :mod:`augment`  — SpecAugment time/frequency masking (training-time)
-- :mod:`kernels`  — hand-written Pallas/Mosaic TPU kernels for the hot path
 """
 
 from . import framing, spectrum, mel, dct, deltas  # noqa: F401

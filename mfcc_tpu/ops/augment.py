@@ -3,7 +3,7 @@
 The trainable front-end (models/trainable.py) exists to feed NN training;
 production speech training feeds SpecAugment-ed features (Park et al.,
 2019, "SpecAugment: A Simple Data Augmentation Method for ASR").  This is
-the TPU-shaped implementation: every mask is a branch-free iota
+a device-friendly implementation: every mask is a branch-free iota
 comparison under ONE jit — no dynamic shapes, no host round-trips, no
 boolean indexing — so it fuses into whatever consumer follows.
 

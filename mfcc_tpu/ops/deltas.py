@@ -13,6 +13,7 @@ into a handful of vector ops.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..config import FeatureConfig
@@ -31,13 +32,15 @@ def deltas(feat: jnp.ndarray, window: int = 2,
     t = jnp.arange(T, dtype=jnp.int32)
     # Gather-free: the shift-and-clip indexing is edge-padded concat +
     # static slice (pure relayout); only the ragged end-edge needs the
-    # per-utterance last valid frame — ONE (., 1, F) pick instead of a
-    # (., T, F) take_along_axis, which lowers to a scalar loop on TPU
-    # (measured as the pitch post-stage bound, bench/ab_viterbi.json).
+    # per-utterance last valid frame — ONE (., 1, F) one-hot pick instead
+    # of a (., T, F) take_along_axis.  The pick is pinned to HIGHEST: at
+    # default precision a float32 contraction may run in TF32, which
+    # would round the picked feature to ~1e-3 relative.
     if lengths is not None:
         hi_cap = jnp.maximum(lengths, 1).astype(jnp.int32) - 1  # (...,)
         onehot = (t == hi_cap[..., None]).astype(feat.dtype)    # (..., T)
-        last = jnp.einsum("...t,...tf->...f", onehot, feat)[..., None, :]
+        last = jnp.einsum("...t,...tf->...f", onehot, feat,
+                          precision=jax.lax.Precision.HIGHEST)[..., None, :]
     out = jnp.zeros_like(feat)
     for n in range(1, window + 1):
         plus = jnp.concatenate(

@@ -68,7 +68,7 @@ def center_pad_batch(x: jnp.ndarray, lengths: jnp.ndarray,
     padded row emits exactly the center-mode frame count T_i).
 
     Construction (all static-shape, per-row offsets via dynamic slices —
-    no data-dependent gather, which lowers to scalar loops on TPU):
+    no data-dependent gather):
     - left pad (position-static, every row starts at 0): the first
       left_pad samples flipped;
     - right pad (per-row at ``lengths[i]``): the last

@@ -4,7 +4,7 @@ The (n_bins, n_mels) triangular filterbank is a constant matrix built in
 float64 by the oracle (single source of truth for the mel conventions —
 see oracle.mel_filterbank) and applied as one GEMM.  This replaces the
 scalar triangular-filter accumulation loops the baseline calls out
-(BASELINE.json north star: "triangular filter sums" -> MXU matmul).
+(BASELINE.json north star: "triangular filter sums" -> one matmul).
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
-"""Pitch compute stages (NCCF + Viterbi, Kaldi-style) — TPU-shaped.
+"""Pitch compute stages (NCCF + Viterbi, Kaldi-style).
 
 The tracker follows Ghahremani et al. 2014 ("A pitch extraction algorithm
 tuned for ASR", the Kaldi pitch) in structure; exact conventions are ours
 and live in docs/conventions.md, mirrored stage-for-stage by the float64
 oracle (oracle.pitch).
 
-TPU mapping (the reference analog is SURVEY.md §2b's "parser" stage —
-frames -> per-frame evidence — realized as GEMMs, not scalar loops):
+Device mapping (frames -> per-frame evidence, realized as GEMMs, not
+scalar loops):
 
 - lowpass + decimate to the work rate: the existing polyphase resampler
   (one GEMM; its Kaiser anti-alias filter IS the pitch lowpass).
@@ -35,6 +35,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from .. import backend as backend_lib
 from ..config import PitchConfig
 from . import deltas as deltas_op
 from .resample import resample, reduce_ratio
@@ -114,12 +115,7 @@ def nccf(xw: jnp.ndarray, pcfg: PitchConfig, mask: jnp.ndarray, *,
     T = mask.shape[1]
 
     # extended frames (B, T, n): static-index gather, same idiom as
-    # framing.frame.  NOTE an r3 A/B replaced this with the spectral
-    # stage's hop-block concat and measured nccf standalone FASTER
-    # (270k vs 225k) but the FULL pitch pipeline SLOWER (86k vs 99k —
-    # the materialized concat frames fuse worse downstream), so the
-    # gather stays; static indices do not hit the dynamic-gather
-    # scalar-loop path.  (bench/ab_viterbi.json r3)
+    # framing.frame
     idx = (np.arange(T) * hop)[:, None] + np.arange(n)[None, :]
     idx = np.minimum(idx, max(Nw - 1, 0))
     E = xw[:, idx]                                     # (B, T, n)
@@ -159,27 +155,11 @@ def nccf(xw: jnp.ndarray, pcfg: PitchConfig, mask: jnp.ndarray, *,
     return num / denom_ball, num / denom_plain
 
 
-def resolve_backend(name: str, pcfg: PitchConfig) -> str:
-    """Pitch-stage backend registry (same shape as backend.resolve):
-    auto -> the fused NCCF Pallas kernel on TPU when the config fits its
-    packed layout (kernels/fused_nccf), else the XLA GEMM path."""
-    if name not in ("auto", "xla", "pallas"):
-        raise ValueError(f"backend must be auto/xla/pallas, got {name!r}")
-    if name == "auto":
-        from .kernels import fused_nccf
-        if (jax.default_backend() == "tpu"
-                and fused_nccf.nccf_kernel_eligible(pcfg)):
-            return "pallas"
-        return "xla"
-    return name
-
-
 def mean_frame_energy(xw: jnp.ndarray, pcfg: PitchConfig,
                       mask: jnp.ndarray) -> jnp.ndarray:
-    """(B,) masked mean of per-frame window energies e0 (the kernel
-    path's wrapper-side ballast input; the XLA path derives the same
-    quantity inside nccf() from its frame tensor — equal up to f32
-    summation order).
+    """(B,) masked mean of per-frame window energies e0 (the chunked
+    path's global ballast input; nccf() derives the same quantity from
+    its frame tensor — equal up to f32 summation order).
 
     Computed from LOCAL hop-block partial sums: frame t's window covers
     hop-blocks [t, t+q) fully plus the first r samples of block t+q
@@ -212,39 +192,12 @@ def mean_frame_energy(xw: jnp.ndarray, pcfg: PitchConfig,
     return (e0 * mask_f).sum(axis=1) / n_valid
 
 
-def _nccf_dispatch(xw: jnp.ndarray, pcfg: PitchConfig, mask: jnp.ndarray,
-                   *, precision, backend: str):
-    """nccf() or the fused Pallas kernel, per the resolved backend.
-    An explicit backend="pallas" on a kernel-ineligible config falls back
-    to the XLA path, matching every other model's dispatch (r4 review:
-    raising here made --backend pallas a crash on configs the kernels
-    can't take, where the MFCC/PLP/spectrogram routes silently degrade)."""
-    from .kernels import fused_nccf
-    if (resolve_backend(backend, pcfg) == "pallas"
-            and fused_nccf.nccf_kernel_eligible(pcfg)):
-        from .. import backend as backend_lib
-        mean_e = mean_frame_energy(xw, pcfg, mask)
-        ball = pcfg.ballast * mean_e * mean_e
-        return fused_nccf.fused_nccf(
-            xw, ball, pcfg, T=mask.shape[1],
-            interpret=backend_lib.pallas_interpret())
-    return nccf(xw, pcfg, mask, precision=precision)
-
-
 def _nccf_chunked(xw: jnp.ndarray, pcfg: PitchConfig, mask: jnp.ndarray,
-                  K: int, *, precision, backend: str):
+                  K: int, *, precision):
     """Chunked NCCF: fold time chunks of K frames into the batch axis —
     (B, Nw) signal -> (B*C, span) rows -> reassembled (B, T, n_lags).
-
-    MEASURED NEGATIVE on TPU (bench/ab_longform.json, r5): 32.5k vs
-    325k audio-sec/s for the unchunked kernel at B=1 x 6 min — the NCCF
-    kernel's grid already fills from the TIME axis (frames tile the
-    grid regardless of batch), so chunking only adds the (B*C, span)
-    assembly, which hits the same long-row relayout pathology the
-    spectral wrapper has (docs/performance.md long-row note).  Kept as
-    an opt-in because the construction is exact and the CPU/XLA path
-    measures 2.3x FASTER chunked (the XLA gather covers fewer
-    elements); the auto paths never use it.
+    An opt-in: the construction is exact, and the extended-frame gather
+    covers fewer elements chunked; its speed on the GPU is not measured.
 
     Frames are bit-identical to the unchunked dispatch on the valid
     region (chunk starts are hop multiples, so every frame reads the
@@ -264,9 +217,8 @@ def _nccf_chunked(xw: jnp.ndarray, pcfg: PitchConfig, mask: jnp.ndarray,
             [xw, jnp.zeros((B, need - Nw), xw.dtype)], axis=-1)
     else:
         xw_p = xw[:, :need] if Nw > need else xw
-    # chunk rows via static reshape + shifted slice, NO gather (a
-    # (C, span) constant-index gather was the first implementation's
-    # 10x TPU slowdown): row c = [base block c | head of block c+1]
+    # chunk rows via static reshape + shifted slice, no gather:
+    # row c = [base block c | head of block c+1]
     base = xw_p[:, : C * stride].reshape(B, C, stride)
     ctx = xw_p[:, stride: (C + 1) * stride].reshape(
         B, C, stride)[:, :, : span - stride]
@@ -277,15 +229,7 @@ def _nccf_chunked(xw: jnp.ndarray, pcfg: PitchConfig, mask: jnp.ndarray,
     mean_e = mean_frame_energy(xw, pcfg, mask)
     ball = pcfg.ballast * mean_e * mean_e           # (B,) global
     ball_c = jnp.repeat(ball, C)
-    from .kernels import fused_nccf
-    if (resolve_backend(backend, pcfg) == "pallas"
-            and fused_nccf.nccf_kernel_eligible(pcfg)):
-        from .. import backend as backend_lib
-        nb, npl = fused_nccf.fused_nccf(
-            xc, ball_c, pcfg, T=K,
-            interpret=backend_lib.pallas_interpret())
-    else:
-        nb, npl = nccf(xc, pcfg, mask_c, precision=precision, ball=ball_c)
+    nb, npl = nccf(xc, pcfg, mask_c, precision=precision, ball=ball_c)
     n_lags = nb.shape[-1]
     nb = nb.reshape(B, C * K, n_lags)[:, :T]
     npl = npl.reshape(B, C * K, n_lags)[:, :T]
@@ -293,23 +237,12 @@ def _nccf_chunked(xw: jnp.ndarray, pcfg: PitchConfig, mask: jnp.ndarray,
 
 
 def _viterbi_dispatch(nccf_b: jnp.ndarray, pcfg: PitchConfig, *,
-                      viterbi_block: int | None, viterbi_warm: int,
-                      backend: str) -> jnp.ndarray:
-    """viterbi()/viterbi_blocked() or the Pallas forward+backtrace
-    kernels (bit-identical paths, kernels/fused_viterbi)."""
-    from .kernels import fused_viterbi
+                      viterbi_block: int | None,
+                      viterbi_warm: int) -> jnp.ndarray:
+    """viterbi(), or viterbi_blocked() when a block is requested."""
     if viterbi_block is not None:
-        vb_backend = ("pallas"
-                      if (resolve_backend(backend, pcfg) == "pallas"
-                          and fused_viterbi.viterbi_kernel_eligible(pcfg))
-                      else "xla")
         return viterbi_blocked(nccf_b, pcfg, block=viterbi_block,
-                               warm=viterbi_warm, backend=vb_backend)
-    if (resolve_backend(backend, pcfg) == "pallas"
-            and fused_viterbi.viterbi_kernel_eligible(pcfg)):
-        from .. import backend as backend_lib
-        return fused_viterbi.viterbi_pallas(
-            nccf_b, pcfg, interpret=backend_lib.pallas_interpret())
+                               warm=viterbi_warm)
     return viterbi(nccf_b, pcfg)
 
 
@@ -318,9 +251,7 @@ def viterbi(nccf_b: jnp.ndarray, pcfg: PitchConfig, *,
     """(B, T, n_lags) masked ballasted NCCF -> (B, T) int32 lag indices.
 
     ``unroll`` packs that many scan steps into one compiled loop body —
-    bit-identical math.  Measured on v5e (bench/ab_viterbi.json): the
-    plain scan wins (211k audio-sec/s standalone vs 183k at unroll=8 —
-    the unrolled body spills); default stays 1.
+    bit-identical math.
     """
     return jax.vmap(
         lambda sc: _viterbi_one(sc, pcfg, unroll=unroll))(nccf_b)
@@ -328,7 +259,7 @@ def viterbi(nccf_b: jnp.ndarray, pcfg: PitchConfig, *,
 
 def viterbi_blocked(nccf_b: jnp.ndarray, pcfg: PitchConfig, *,
                     block: int = 256, warm: int = 128,
-                    unroll: int = 8, backend: str = "xla") -> jnp.ndarray:
+                    unroll: int = 8) -> jnp.ndarray:
     """Blocked Viterbi: (B, T, n_lags) -> (B, T) lag indices with the T-step
     sequential chain cut to ``block + 2*warm`` steps (VERDICT r2 #9).
 
@@ -362,24 +293,13 @@ def viterbi_blocked(nccf_b: jnp.ndarray, pcfg: PitchConfig, *,
     measures it; callers opt in (execution strategy, not contract —
     same policy as backend/tile_t kwargs).
 
-    When to opt in (measured, bench/ab_viterbi.json): it LOSES at batch
-    64 x 10 s (92k vs 211k audio-sec/s — the chunk windows cost real
-    bandwidth and B already fills the VPU) and WINS 4.0x single-stream
-    long-form (B=1, 6 min: 14.3k vs 3.6k — chunk parallelism replaces
-    the missing batch dim).  Rule of thumb: use for B * C >> 64, i.e.
-    few streams x many chunks.
+    When to opt in: few streams x many chunks (B * C >> B), where
+    chunk parallelism replaces the missing batch dim; the crossover on
+    the GPU is not measured.
     """
     B, T, n = nccf_b.shape
     if T <= block + 2 * warm:
-        # short input: the exact (unblocked) solution — through the
-        # kernel when requested/eligible (r4 review: this early return
-        # used to drop back to the plain scan even under backend=pallas)
-        from .kernels import fused_viterbi
-        if (backend == "pallas"
-                and fused_viterbi.viterbi_kernel_eligible(pcfg)):
-            from .. import backend as backend_lib
-            return fused_viterbi.viterbi_pallas(
-                nccf_b, pcfg, interpret=backend_lib.pallas_interpret())
+        # short input: the exact (unblocked) solution
         return viterbi(nccf_b, pcfg, unroll=unroll)
     C = -(-T // block)
     Tpad = C * block
@@ -389,20 +309,8 @@ def viterbi_blocked(nccf_b: jnp.ndarray, pcfg: PitchConfig, *,
     Lw = block + 2 * warm
     idx = (np.arange(C) * block)[:, None] + np.arange(Lw)[None, :]
     W = S[:, idx]                                      # (B, C, Lw, n)
-    # backend="pallas" (r4): the chunk axis joins the batch axis and the
-    # B*C problems run through the Viterbi kernels — the chunks fill the
-    # kernel's 128 batch lanes that a B=1 long-form stream leaves empty.
-    # Bit-identical per chunk (fused_viterbi contract), so the blocked
-    # strategy's deviation model is unchanged.
-    from .kernels import fused_viterbi
-    if backend == "pallas" and fused_viterbi.viterbi_kernel_eligible(pcfg):
-        from .. import backend as backend_lib
-        paths = fused_viterbi.viterbi_pallas(
-            W.reshape(B * C, Lw, n), pcfg,
-            interpret=backend_lib.pallas_interpret()).reshape(B, C, Lw)
-    else:
-        paths = jax.vmap(jax.vmap(
-            lambda sc: _viterbi_one(sc, pcfg, unroll=unroll)))(W)
+    paths = jax.vmap(jax.vmap(
+        lambda sc: _viterbi_one(sc, pcfg, unroll=unroll)))(W)
     interior = paths[:, :, warm: warm + block]         # (B, C, block)
     return interior.reshape(B, Tpad)[:, :T]
 
@@ -429,13 +337,10 @@ def _viterbi_one(scores: jnp.ndarray, pcfg: PitchConfig, *,
 
 
 def _path_neighborhood(nccf_p: jnp.ndarray, path: jnp.ndarray):
-    """(..., n_lags) values at (path-1, path, path+1) via one-hot
-    contractions — NO take_along_axis: dynamic gathers lower to scalar
-    loops on TPU and were the measured bound of the whole pitch pipeline
-    (bench/ab_viterbi.json: post stage ~58k audio-sec/s equivalent vs
-    NCCF 224k / Viterbi 211k standalone).  Three iota-compares + three
-    lane reductions are pure VPU work.  Out-of-range neighbors (path at
-    a grid edge) contract to 0 — callers mask those frames anyway."""
+    """(..., n_lags) values at (path-1, path, path+1) via masked
+    reductions (three iota-compares + three lane sums, no dynamic
+    gather).  Out-of-range neighbors (path at a grid edge) contract to
+    0 — callers mask those frames anyway."""
     n = nccf_p.shape[-1]
     lane = jnp.arange(n, dtype=jnp.int32)
     p = path[..., None]
@@ -471,8 +376,7 @@ def weighted_sliding_mean(v: jnp.ndarray, wgt: jnp.ndarray,
     semantics); frames with zero total weight fall back to v[t].
 
     Gather-free: the clipped prefix-sum indexing (min(t+h+1, T) /
-    max(t-h, 0)) is realized as edge-padded concat + static slice —
-    pure relayout, no TPU gather."""
+    max(t-h, 0)) is realized as edge-padded concat + static slice."""
     T = v.shape[-1]
     half = window // 2
     zero = jnp.zeros(v.shape[:-1] + (1,), v.dtype)
@@ -509,10 +413,10 @@ def pitch_features(x: jnp.ndarray, lengths: jnp.ndarray,
     viterbi_block: opt-in blocked Viterbi (see `viterbi_blocked`) —
     execution strategy, near-exact, measured in tests/test_pitch.py.
     nccf_chunk: opt-in chunked NCCF (see `_nccf_chunked`) — K frames per
-    chunk folded into the batch axis; bit-identical frames.  NOTE: a
-    measured NEGATIVE on TPU (10x slower than the unchunked kernel,
-    bench/ab_longform.json — see _nccf_chunked docstring); useful only
-    on the CPU/XLA path."""
+    chunk folded into the batch axis; bit-identical frames.
+    backend: a name from the backend registry (the pitch stages have
+    one path)."""
+    backend_lib.resolve(backend)
     B, N = x.shape
     T = pcfg.num_frames(N)
     if T <= 0:
@@ -527,14 +431,12 @@ def pitch_features(x: jnp.ndarray, lengths: jnp.ndarray,
 
     if nccf_chunk is not None and T > nccf_chunk:
         nccf_b, nccf_p = _nccf_chunked(xw, pcfg, mask, nccf_chunk,
-                                       precision=precision, backend=backend)
+                                       precision=precision)
     else:
-        nccf_b, nccf_p = _nccf_dispatch(xw, pcfg, mask,
-                                        precision=precision,
-                                        backend=backend)
+        nccf_b, nccf_p = nccf(xw, pcfg, mask, precision=precision)
     nccf_b = jnp.where(mask[..., None], nccf_b, 0.0)
     path = _viterbi_dispatch(nccf_b, pcfg, viterbi_block=viterbi_block,
-                             viterbi_warm=viterbi_warm, backend=backend)
+                             viterbi_warm=viterbi_warm)
 
     ym, c, yp = _path_neighborhood(nccf_p, path)
     dlag = _parabolic_from(ym, c, yp, path, nccf_p.shape[-1])
@@ -557,6 +459,7 @@ def pitch_track(x: jnp.ndarray, lengths: jnp.ndarray, pcfg: PitchConfig, *,
                 nccf_chunk: int | None = None, backend: str = "auto"):
     """(B, N), (B,) -> ((B, T) f0 in Hz, (B, T) plain NCCF 'voicing', mask).
     The raw track for consumers that want Hz rather than ASR features."""
+    backend_lib.resolve(backend)
     B, N = x.shape
     T = pcfg.num_frames(N)
     if T <= 0:
@@ -568,15 +471,13 @@ def pitch_track(x: jnp.ndarray, lengths: jnp.ndarray, pcfg: PitchConfig, *,
     mask = jnp.arange(T, dtype=jnp.int32)[None, :] < flens[:, None]
     if nccf_chunk is not None and T > nccf_chunk:
         nccf_b, nccf_p = _nccf_chunked(
-            xw, pcfg, mask, nccf_chunk,
-            precision=jax.lax.Precision.HIGHEST, backend=backend)
+            xw, pcfg, mask, nccf_chunk, precision=jax.lax.Precision.HIGHEST)
     else:
-        nccf_b, nccf_p = _nccf_dispatch(
-            xw, pcfg, mask, precision=jax.lax.Precision.HIGHEST,
-            backend=backend)
+        nccf_b, nccf_p = nccf(xw, pcfg, mask,
+                              precision=jax.lax.Precision.HIGHEST)
     nccf_b = jnp.where(mask[..., None], nccf_b, 0.0)
     path = _viterbi_dispatch(nccf_b, pcfg, viterbi_block=viterbi_block,
-                             viterbi_warm=viterbi_warm, backend=backend)
+                             viterbi_warm=viterbi_warm)
     ym, c, yp = _path_neighborhood(nccf_p, path)
     lag = (pcfg.min_lag + path.astype(jnp.float32)
            + _parabolic_from(ym, c, yp, path, nccf_p.shape[-1]))

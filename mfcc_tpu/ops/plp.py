@@ -1,4 +1,4 @@
-"""PLP compute stages (Hermansky 1990) — TPU-shaped.
+"""PLP compute stages (Hermansky 1990).
 
 Everything spectral is a GEMM against constant-folded float64-built
 matrices (same discipline as the mel/DCT stages): critical-band energies
@@ -6,7 +6,7 @@ with the equal-loudness curve folded into the bark filterbank, and the
 autocorrelation as an IDFT matrix product.  The two short recursions
 (Levinson-Durbin and LPC->cepstra) unroll to ``lpc_order`` / ``n_mfcc``
 steps of fully-batched (B, T)-wide elementwise ops — static trip counts,
-no scan state, VPU-trivial next to the DFT GEMMs.
+no scan state, trivial next to the DFT GEMMs.
 
 Numerical notes:
 - cube-root compression uses exp(0.33 * accurate_log(x)): XLA's f32 pow
@@ -113,15 +113,6 @@ def plp_from_power_split(power_lo, power_hi, cfg: FeatureConfig, *,
     """Split-bin power spectrum -> (..., T, n_mfcc) PLP cepstra
     (liftered; energy/deltas handled by the model layer)."""
     loud = bark_loudness_split(power_lo, power_hi, cfg, precision=precision)
-    return _plp_from_loudness(loud, cfg, precision=precision)
-
-
-def plp_from_log_bark(log_bark, cfg: FeatureConfig, *, precision=None):
-    """(..., T, n_bark) floored-log band energies (the fused raw-DIT
-    kernel's projection="bark" output — identical numerics to
-    ``floored_log(bark GEMM)``) -> (..., T, n_mfcc) PLP cepstra.  The
-    cube-root loudness is one exp on the already-computed log."""
-    loud = jnp.exp(jnp.float32(0.33) * log_bark)
     return _plp_from_loudness(loud, cfg, precision=precision)
 
 

@@ -4,7 +4,7 @@ energy VAD.
 The Kaldi post-processing trio (apply-cmvn-sliding, splice-feats,
 compute-vad) that sits between a front-end and an acoustic model.  All
 three are windowed reductions over the time axis, implemented with the
-same two TPU-friendly idioms the rest of the framework uses: one
+same two gather-free idioms the rest of the framework uses: one
 cumulative sum + static slices for sliding statistics, and a static
 clipped-index gather for context windows.  Everything is (B, T, F)
 batched, padding-aware via the frame-count vector, and shape-static
@@ -15,6 +15,7 @@ tests/test_post.py.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 
@@ -162,7 +163,8 @@ def splice(feat: jnp.ndarray, flens: jnp.ndarray, left: int = 3,
     t = jnp.arange(T, dtype=jnp.int32)
     hi_cap = jnp.maximum(flens, 1).astype(jnp.int32) - 1        # (B,)
     onehot = (t[None, :] == hi_cap[:, None]).astype(feat.dtype)
-    last = jnp.einsum("bt,btf->bf", onehot, feat)[:, None, :]   # (B,1,F)
+    last = jnp.einsum("bt,btf->bf", onehot, feat,               # (B,1,F)
+                      precision=jax.lax.Precision.HIGHEST)[:, None, :]
     cols = []
     for off in range(-left, right + 1):
         if off < 0:

@@ -1,4 +1,4 @@
-"""Sample-rate conversion as ONE GEMM (TPU-native polyphase resampler).
+"""Sample-rate conversion as ONE GEMM (polyphase resampler).
 
 Production corpora are not uniformly 16 kHz; a front-end that quarantines
 every 8/22.05/44.1/48 kHz file (the round-1 behavior) is incomplete.  This
@@ -8,9 +8,9 @@ lowpass, downsample M) in the same GEMM-native style as the DFT stage:
     y[b*L + p] = dot(x[b*M + lo : b*M + lo + W], H[:, p])
 
 i.e. the polyphase filter bank is laid out as a single (W, L) matrix H and
-the signal as overlapping width-W frames strided by M — which on TPU is the
-same zero-copy hop-block concat the spectral stage uses, so the whole
-resampler is one MXU matmul per signal.  No scalar loops, no dynamic
+the signal as overlapping width-W frames strided by M — the same zero-copy
+hop-block concat the spectral stage uses, so the whole resampler is one
+matmul per signal.  No scalar loops, no dynamic
 shapes, no scatter.
 
 Filter design matches scipy.signal.resample_poly's default: a Kaiser
@@ -138,8 +138,7 @@ def resample(x: jnp.ndarray, sr_in: int, sr_out: int, *,
 
     # Super-block the polyphase bank so the GEMM has >= ~128 output
     # columns.  For small L (e.g. 16k->4k has L=1) the naive (W, L)
-    # matrix uses 1..L of 128 MXU lanes — measured as ~2/3 of the whole
-    # pitch pipeline's time.  Stacking R decimation steps per GEMM row
+    # matrix is a matrix-vector product with 1..L output columns.  Stacking R decimation steps per GEMM row
     # (block-Toeplitz H2: column r*L+p = H[:, p] shifted r*M rows) is the
     # SAME per-output dot product — the band's structural zeros add
     # exact 0.0 terms — so outputs are bit-identical, with R*L lanes

@@ -1,7 +1,7 @@
 """GEMM-native real DFT power spectrum (JAX).
 
-The load-bearing TPU design decision (SURVEY.md §7 step 4): instead of a
-butterfly FFT — which lowers poorly on TPU and wastes the MXU — the windowed
+The load-bearing design decision (SURVEY.md §7 step 4): instead of a
+butterfly FFT, the windowed
 ``n_fft``-point real DFT of a ``frame_len``-sample frame is exactly
 
     Re[k] = sum_n  x[n] * w[n] * cos(2*pi*n*k/n_fft)
@@ -32,8 +32,8 @@ from .framing import build_window
 
 _PRECISIONS = {
     "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,       # bf16x3 f32 emulation on MXU
-    "highest": jax.lax.Precision.HIGHEST, # bf16x6
+    "high": jax.lax.Precision.HIGH,       # TF32 on the GPU
+    "highest": jax.lax.Precision.HIGHEST, # IEEE float32
 }
 
 
@@ -99,11 +99,11 @@ def power_spectrum_blocked_split(
     """Lane-exact variant: returns (power_lo (..., T, n_bins-1), power_hi
     (..., T, 1)) with the top (Nyquist, for even n_fft) bin split out.
 
-    Rationale: n_bins = n_fft/2 + 1 = 257 forces the MXU to pad the DFT
-    GEMM's output to 384 lanes — 50% wasted columns.  The top bin costs
-    one extra (frame_len, 1) dot (its sine column is identically zero for
-    even n_fft), so computing 256 + 1 keeps the big GEMM at exactly two
-    128-lane tiles.  Consumers either concat (power_spectrum_blocked) or
+    Rationale: n_bins = n_fft/2 + 1 = 257 is one column past a power of
+    two, so a GEMM tiled in powers of two pads its output by a whole tile.
+    The top bin costs one extra (frame_len, 1) dot (its sine column is
+    identically zero for even n_fft), so computing 256 + 1 keeps the big
+    GEMM at an exact power-of-two width.  Consumers either concat (power_spectrum_blocked) or
     fold the split bin directly into the mel projection
     (mel.log_mel_energies_split) without materializing the concat.
     """
@@ -174,8 +174,7 @@ def power_spectrum_blocked(
               + B2[q:q+T, :r] @ M[q*hop:]
 
     i.e. q (+1 if r>0) dense GEMMs over *contiguous static slices* — no
-    (T, frame_len) gather/materialization, ~3x less HBM traffic, and the
-    same decomposition drives the fused Pallas kernel (kernels/fused_mfcc).
+    (T, frame_len) gather/materialization, ~3x less HBM traffic.
     """
     q, r = divmod(cfg.frame_len, cfg.hop_len)
     hop = cfg.hop_len
@@ -242,13 +241,10 @@ def power_spectrum_direct_concat(
     """"directc": split-bin direct DFT over concat-materialized frames.
 
     Same numbers as power_spectrum_blocked_split, different GEMM shape:
-    instead of q+1 GEMMs with K=hop each (every one lane-padded by the MXU
-    from hop up to the next 128 multiple — 1.6x FLOP bloat at hop 160),
-    ONE (T, ceil(frame/hop)*hop) @ (K, n_fft/2) GEMM per component whose
-    K pads 480->512 (1.07x).  The frame matrix is materialized in VMEM/HBM
-    by a lane concat of static slices (no gather), trading ~4x more input
-    bytes for near-exact MXU utilization — the right trade while the
-    pipeline is compute-bound at HIGHEST precision (docs/performance.md).
+    instead of q+1 GEMMs with K=hop each, ONE (T, ceil(frame/hop)*hop) @
+    (K, n_fft/2) GEMM per component.  The frame matrix is materialized in
+    device memory by a concat of static slices (no gather), trading ~4x
+    more input bytes for one large contraction.
     """
     hop = cfg.hop_len
     T = cfg.num_frames(x.shape[-1])
@@ -326,12 +322,10 @@ def power_spectrum_dit_concat(
 ):
     """"dit2c": radix-2 DIT over concat-materialized parity-stream frames.
 
-    The minimal-MAC formulation with near-exact MXU padding: per parity
-    stream ONE (T, ceil(L/hop2)*hop2) @ (K, n_fft/2) GEMM (+ rank-1
-    Nyquist), K padding 240->256 at 25/10 ms (1.07x over the 200 valid
-    rows' 1.28x intrinsic zero-rows) — vs dit2's per-block GEMMs whose
-    K=80 the MXU pads to 128 (1.6x).  2.0x fewer true MACs than direct,
-    with the twiddle combine fused into the GEMM epilogue by XLA.
+    The minimal-MAC formulation with one contraction per parity stream:
+    ONE (T, ceil(L/hop2)*hop2) @ (K, n_fft/2) GEMM (+ rank-1 Nyquist) —
+    vs dit2's per-block GEMMs with K = hop/2.  2.0x fewer true MACs than
+    direct, with the twiddle combine fused into the GEMM epilogue by XLA.
     """
     if not dit_eligible(cfg):
         raise ValueError("dit2c requires n_fft % 4 == 0 and even hop_len")
@@ -425,13 +419,11 @@ def power_spectrum_dit4_concat(
         O[j] = S_1[j] + W^{2j} S_3[j]      (odd samples)
         X[j] / X[n_fft/2 - j] via the radix-2 combine of E, O
 
-    so the MXU sees FOUR (T, ceil(L/4/hop4)*hop4) @ (K, n_fft/4) GEMMs:
+    so the device sees FOUR (T, ceil(L/4/hop4)*hop4) @ (K, n_fft/4) GEMMs:
     3.3x fewer true MACs than the direct DFT (61k vs 205k per 25/10 ms
-    frame) at near-exact lane padding (K pads 120->128, N = n_fft/4 lanes
-    exact).  The price is two levels of elementwise twiddle combines plus
-    the conjugate-symmetry lane flips that extend each quarter DFT to
-    half-DFT range — relayouts that XLA materializes through HBM, which is
-    exactly what sank dit2/dit2c in the round-1 A/B (bench/ab_dft.json).
+    frame).  The price is two levels of elementwise twiddle combines plus
+    the conjugate-symmetry flips that extend each quarter DFT to
+    half-DFT range — relayouts that XLA materializes through HBM.
     Measured on device before any default change (the reference repo's
     lesson: behavior-level measurement is the oracle, /root/reference/
     test/run.sh; a declared-but-unmeasured default is its ignored
@@ -523,15 +515,9 @@ def dit_eligible(cfg: FeatureConfig) -> bool:
 
 
 def resolve_dft_algorithm(cfg: FeatureConfig) -> str:
-    """"auto" -> "direct": the measured v5e winner.
-
-    On-device A/B (bench/ab_dft.json + bench/ab_dft_concat.json, medians
-    of 7x100 iters, batch 64x10 s): direct 289.7k, dit2c 267.4k, directc
-    253.2k, dit2 234.1k audio-sec/s/chip.  Radix-2 halves true MACs but
-    every DIT variant loses in XLA — the parity deinterleave / frame
-    concat / bin-reorder relayouts cost more than the MAC savings buy at
-    these shapes.  The MAC reduction pays off only where intermediates
-    stay in VMEM, i.e. inside the fused Pallas kernel (kernels/).
+    """"auto" -> "direct".  Radix-2 halves true MACs, but the DIT
+    variants add parity deinterleave / frame concat / bin-reorder
+    relayouts; which factorization wins on the GPU is not measured yet.
     """
     algo = getattr(cfg, "dft_algorithm", "auto")
     if algo == "auto":
@@ -545,7 +531,7 @@ def power_spectrum_dit_split(
     *,
     precision=None,
 ):
-    """Radix-2 decimation-in-time GEMM DFT — half the MXU MACs of the
+    """Radix-2 decimation-in-time GEMM DFT — half the MACs of the
     direct form, same (p_lo, p_hi) contract as power_spectrum_blocked_split.
 
     Split frame samples by parity: with E, O the window-folded n_fft/2-point
@@ -557,8 +543,7 @@ def power_spectrum_dit_split(
     so |X|^2 over all n_fft/2+1 bins comes from TWO (L/2, n_fft/2)-lane
     GEMMs (vs two (L, n_fft/2) ones) plus an elementwise twiddle combine
     that XLA fuses into the GEMM epilogue: exactly 2.0x fewer MACs at the
-    precision-mandated (HIGHEST) matmul rate, where the pipeline is
-    compute-bound (docs/performance.md).  Each stream reuses the hop-block
+    precision-mandated (HIGHEST) matmul rate.  Each stream reuses the hop-block
     decomposition with hop/2-sample blocks — still no frame
     materialization.  The half-DFT Nyquist bin (basis (-1)^m, sine
     identically zero) rides as a rank-1 update, keeping the big GEMM at
@@ -612,8 +597,8 @@ def power_spectrum_split(
     - "direct"  hop-block GEMM chain, split-bin (no frame materialization)
     - "directc" direct DFT over concat-materialized frames (one big GEMM)
     - "dit2"    radix-2 DIT hop-block chain (2x fewer true MACs)
-    - "dit2c"   radix-2 DIT over concat frames (2x fewer MACs AND ~exact
-                MXU lane padding)
+    - "dit2c"   radix-2 DIT over concat frames (2x fewer MACs, one
+                contraction per parity stream)
     - "dit4c"   two-stage Cooley-Tukey over concat frames (3.3x fewer
                 true MACs; two twiddle levels)
     """
@@ -652,10 +637,10 @@ def power_spectrum(
 ) -> jnp.ndarray:
     """(..., T, frame_len) pre-emphasized frames -> (..., T, n_bins) |X|^2.
 
-    float32 accumulation with HIGHEST matmul precision by default: a single
-    bf16 MXU pass has ~2^-8 relative error which, pushed through log(), blows
-    the 1e-4 feature tolerance; HIGHEST keeps full f32 fidelity while still
-    running on the MXU.
+    float32 accumulation with HIGHEST matmul precision by default: a TF32
+    or single bf16 pass has ~2^-11..2^-8 relative error which, pushed
+    through log(), blows the 1e-4 feature tolerance; HIGHEST keeps full
+    f32 fidelity.
     """
     if precision is None:
         precision = resolve_precision(cfg)

@@ -1,9 +1,8 @@
 """Accurate elementwise math for feature pipelines.
 
 Hardware transcendental units are fast approximations: XLA CPU's f32 ``log``
-has ~1e-4 *absolute* error (measured in tests/test_xmath.py) and TPU's is a
-low-precision polynomial as well — either alone can consume the pipeline's
-entire 1e-4 feature tolerance.  Log compression sits directly on the feature
+has ~1e-4 *absolute* error (measured in tests/test_xmath.py) — alone it can
+consume the pipeline's entire 1e-4 feature tolerance.  Log compression sits directly on the feature
 contract, so this module provides an accurate f32 ``log`` from exact integer
 exponent extraction plus an odd atanh series on the centered mantissa:
 
@@ -14,7 +13,7 @@ exponent extraction plus an odd atanh series on the centered mantissa:
 
 The r^9 truncation error is < 6e-10; total error ~1 f32 ulp.  Cost is ~15
 vector FLOPs per element — noise next to the DFT GEMMs — and the result is
-bit-deterministic across CPU and TPU backends (a reproducibility win the
+bit-deterministic across CPU and GPU backends (a reproducibility win the
 hardware LUTs can't give).
 
 Valid for finite x > 0; callers clamp with a log floor first (the pipeline

@@ -6,7 +6,7 @@ test/run.sh:6-10`` runs the compiled program and uses its exit status as truth).
 The baseline's "validate against the reference binary" clause is unsatisfiable
 (the reference binary is a C compiler — see SURVEY.md §0.2), so this float64
 implementation of the exact MFCC definition is the substitute oracle.  Every
-JAX / Pallas stage must match it allclose (atol 1e-4).
+JAX stage must match it allclose (atol 1e-4).
 
 Everything here is deliberately plain NumPy float64, written for clarity and
 auditable correctness, not speed.  Conventions (all driven by FeatureConfig):

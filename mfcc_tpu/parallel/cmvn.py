@@ -58,7 +58,7 @@ def batch_stats(feat: jnp.ndarray, mask: jnp.ndarray) -> Stats:
     Works on sharded inputs under jit: the batch-axis reductions become
     cross-device psums inserted by the SPMD partitioner.
 
-    Precision note: on-device stats are f32 (TPUs have no f64), and
+    Precision note: on-device stats are f32 (JAX runs without x64), and
     variance later comes from sumsq/n - mean^2 — for cepstra with
     |mean| >> std that cancellation bounds normalized-feature accuracy at
     ~5e-4 (measured).  Fine for on-device serving/training normalization;

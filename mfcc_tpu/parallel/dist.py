@@ -1,10 +1,10 @@
 """Multi-host setup and per-host corpus sharding.
 
 The reference's "other target that needs its own launcher" was a manual
-RISC-V flow (SURVEY.md §2b); here it is the pod path: every host runs the
-same program, ``jax.distributed.initialize`` wires the processes together,
-the global mesh spans all chips, and each host reads only its own shard of
-the corpus (data loading stays on local disk; DCN carries only CMVN stats).
+RISC-V flow (SURVEY.md §2b); here every host runs the same program,
+``jax.distributed.initialize`` wires the processes together, and each host
+reads only its own shard of the corpus (data loading stays on local disk;
+the network carries only CMVN stats).
 """
 
 from __future__ import annotations
@@ -14,17 +14,23 @@ import jax
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
-               process_id: int | None = None) -> None:
-    """Initialize multi-host JAX.  No-op for single-process runs.
+               process_id: int | None = None,
+               local_device_ids: list[int] | None = None) -> None:
+    """Initialize multi-process JAX.  No-op for single-process runs.
 
-    On TPU pods all arguments are discovered from the environment; args
-    exist for explicit/CPU testing setups.
+    Nothing tells JAX of a GPU cluster, so multi-process runs pass the
+    coordinator (``host:port``), the process count and this process's id.
+    By default one process owns all of its host's GPUs, which is what
+    ``runner.run`` expects (it shards each batch over the local devices).
+    ``local_device_ids`` pins this process to those GPUs instead, e.g.
+    ``[process_id]`` for one process per GPU on a single host.
     """
     if num_processes is not None and num_processes > 1 or coordinator_address:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=local_device_ids,
         )
 
 

@@ -7,9 +7,9 @@ utterance batch ("data"); the model axes ("feat") exist for the
 trainable front-end and for very wide filterbanks.
 
 Axis convention:
-- ``data`` — utterance batch; maps onto all chips (ICI) and across
-  hosts (DCN).  Per-host input shards stay host-local so DCN carries
-  only CMVN statistics (bytes, not tensors).
+- ``data`` — utterance batch; maps onto every device of every host.
+  Per-host input shards stay host-local, so the network between hosts
+  carries only CMVN statistics (bytes, not tensors).
 - ``feat`` — feature/model dimension for tensor-parallel projections.
 """
 
@@ -31,7 +31,8 @@ def make_mesh(shape: tuple[int, ...] | None = None,
 
     Default: 1-D mesh over all devices named "data".  ``shape`` with more
     axes (e.g. (n//2, 2) with ("data", "feat")) enables tensor-parallel
-    layouts.  Uses mesh_utils for ICI-friendly physical ordering.
+    layouts.  Devices are laid out in the given order: the GPUs of a host
+    are joined all to all, so no physical ordering applies.
     """
     if devices is None:
         devices = jax.devices()
@@ -40,12 +41,7 @@ def make_mesh(shape: tuple[int, ...] | None = None,
         shape = (n,) + (1,) * (len(axis_names) - 1)
     if int(np.prod(shape)) != n:
         raise ValueError(f"mesh shape {shape} != {n} devices")
-    try:
-        from jax.experimental import mesh_utils
-        dev_array = mesh_utils.create_device_mesh(shape, devices=devices)
-    except Exception:  # non-contiguous topologies: fall back to row-major
-        dev_array = np.asarray(devices).reshape(shape)
-    return Mesh(dev_array, axis_names)
+    return Mesh(np.asarray(devices).reshape(shape), axis_names)
 
 
 def data_sharding(mesh: Mesh, ndim: int = 2) -> NamedSharding:

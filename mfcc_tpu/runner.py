@@ -648,8 +648,7 @@ def run(corpus: str, cfg: FeatureConfig, opts: RunnerOptions) -> report.RunRepor
         """Fetch a finished batch (blocks on ITS device work only)."""
         nonlocal stats
         with report.stage_timer(rep, "fetch+write"):
-            from .utils.fetch import chunked_to_numpy
-            feat_np = chunked_to_numpy(feat)
+            feat_np = np.asarray(feat)
             flens_np = np.asarray(flens)
             if rep.max_abs_error is None:
                 _self_check(pb, lengths, feat_np, flens_np)
@@ -791,8 +790,7 @@ def run(corpus: str, cfg: FeatureConfig, opts: RunnerOptions) -> report.RunRepor
 
         def write_packed(rows, feat_dev, f0_dev, fc_dev):
             with report.stage_timer(rep, "fetch+write"):
-                from .utils.fetch import chunked_to_numpy
-                feat_np = chunked_to_numpy(feat_dev)
+                feat_np = np.asarray(feat_dev)
                 f0 = np.asarray(f0_dev)
                 fc = np.asarray(fc_dev)
                 for b, row in enumerate(rows):

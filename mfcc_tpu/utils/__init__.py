@@ -1,6 +1,6 @@
 """Host-side utilities: ragged batching, WAV IO, manifests, logging.
 
-The TPU analogs of the reference's utility layer (vector/hash containers,
+The analogs of the reference's utility layer (vector/hash containers,
 ``DPRINT`` diagnostics — SURVEY.md §2 items 8-10): here the "containers"
 are ragged-batch bucketing with padding masks, IO is a WAV reader with an
 optional native C++ fast path, and diagnostics are structured run reports

@@ -10,7 +10,7 @@ The pure-Python parser is the always-available fallback; ``native.wavio``
 (C++, ctypes) decodes and converts in native code for corpus-scale
 ingestion — the runtime-outside-the-compute-path component the reference
 kept in C (its entire repo is C; SURVEY.md §2b maps native surface to
-Pallas for on-chip code and C++ for host IO).
+C++ for host IO).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 // Native WAV corpus loader for mfcc_tpu.
 //
 // Host-side IO is the one part of this framework where native code buys real
-// throughput (the TPU compute path is JAX/Pallas; SURVEY.md §2b): corpus
+// throughput (the device compute path is JAX; SURVEY.md §2b): corpus
 // ingestion decodes millions of PCM samples per second and feeds pinned host
 // buffers for device transfer.  This translation unit provides:
 //

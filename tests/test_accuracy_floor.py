@@ -84,7 +84,7 @@ def test_unbounded_valley_floor_is_f32_not_pipeline():
 @pytest.mark.parametrize("db, bound", [
     (50.0, 1e-4),   # THE contract point (measured 1.8e-5 / 4.4e-5)
     (60.0, 2.5e-4),  # f32 model bound 2*eps*10^3 (measured 3.5e-5/1.21e-4)
-    (80.0, 5e-4),   # measured 1.7e-4 CPU / 2.5e-4 TPU (signal-dependent:
+    (80.0, 5e-4),   # measured 1.7e-4 on the CPU backend (signal-dependent:
                     # the model bound 2*eps*10^4 binds only if valleys
                     # actually sit at the floor)
 ])

@@ -18,6 +18,8 @@ import pytest
 
 from mfcc_tpu.utils import wav
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def _free_port():
     s = socket.socket()
@@ -40,7 +42,7 @@ def test_multi_process_global_cmvn(tmp_path, rng, nproc):
 
     worker = os.path.join(os.path.dirname(__file__), "mp_cmvn_worker.py")
     port = _free_port()
-    env = dict(os.environ, PYTHONPATH="/root/repo", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     procs = [subprocess.Popen(
         [sys.executable, worker, str(i), str(port), str(corpus),
          str(tmp_path), str(nproc)],
@@ -69,7 +71,7 @@ def test_multi_process_runner_end_to_end(tmp_path, rng, nproc):
 
     # single-process reference (fresh interpreter: no jax.distributed)
     ref_dir = tmp_path / "ref"
-    env = dict(os.environ, PYTHONPATH="/root/repo", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-c",
          "import sys; sys.argv=['x']; "
@@ -118,7 +120,7 @@ def test_two_process_runner_packed(tmp_path, rng):
         wav.write_wav(corpus / f"u{i}.wav", x, 16000)
 
     ref_dir = tmp_path / "ref"
-    env = dict(os.environ, PYTHONPATH="/root/repo", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-c",
          "import sys; sys.argv=['x']; "

@@ -1,5 +1,5 @@
 """dtype policy, int16 ingestion, and sanitizer-analog runs
-(SURVEY.md §5: debug-NaN + disable-jit equivalence are the TPU project's
+(SURVEY.md §5: debug-NaN + disable-jit equivalence are the project's
 race-detector/sanitizer substitutes)."""
 
 import numpy as np

@@ -54,8 +54,14 @@ def test_pack_improves_fill(rng):
     assert fill > 0.90, fill
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_packed_features_bit_identical(rng, backend):
+def _standalone(family):
+    from mfcc_tpu.models import logmel as logmel_model
+    return {"mfcc": mfcc_model.mfcc_batch_jit,
+            "logmel": logmel_model.log_mel_batch_jit}[family]
+
+
+@pytest.mark.parametrize("family", ["mfcc", "logmel"])
+def test_packed_features_bit_identical(rng, family):
     """Segment features == standalone features, bitwise (same reduction
     per output element); gap/boundary frames zeroed."""
     sigs = _ragged(rng, n_utts=6)
@@ -75,14 +81,14 @@ def test_packed_features_bit_identical(rng, backend):
         starts[b, : len(st)], lens[b, : len(ln)] = st, ln
     feat, f0, fc, mask = mfcc_model.mfcc_batch_packed_jit(
         jnp.asarray(x), jnp.asarray(starts), jnp.asarray(lens), CFG,
-        backend)
+        family=family)
     feat = np.asarray(feat)
     f0, fc, mask = np.asarray(f0), np.asarray(fc), np.asarray(mask)
     for b, row in enumerate(rows):
         for j, (uid, off, n) in enumerate(row.segments):
-            want, wl, _ = mfcc_model.mfcc_batch_jit(
+            want, wl, _ = _standalone(family)(
                 jnp.asarray(by_id[uid][None, :n]),
-                jnp.asarray([n], np.int32), CFG, backend)
+                jnp.asarray([n], np.int32), CFG)
             assert fc[b, j] == int(wl[0]) == CFG.num_frames(n)
             got = feat[b, f0[b, j]: f0[b, j] + fc[b, j]]
             np.testing.assert_array_equal(got, np.asarray(want)[0])
@@ -90,8 +96,8 @@ def test_packed_features_bit_identical(rng, backend):
     assert np.all(feat[~mask] == 0.0)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_split_packed_features_bit_identical(rng, backend):
+@pytest.mark.parametrize("family", ["mfcc", "logmel"])
+def test_split_packed_features_bit_identical(rng, family):
     """Splittable packing: utterances split across rows at frame
     boundaries (streaming-chunk construction) reassemble to the
     standalone features EXACTLY — including continuations whose
@@ -120,10 +126,11 @@ def test_split_packed_features_bit_identical(rng, backend):
         pieces.append(pcs)
     feat, f0, fc, mask = mfcc_model.mfcc_batch_packed_jit(
         jnp.asarray(x), jnp.asarray(starts), jnp.asarray(lens), CFG,
-        backend)
+        family=family)
     feat = np.asarray(feat)
     # reassemble per utterance and compare bitwise to standalone
-    rebuilt = {k: np.zeros((CFG.num_frames(len(v)), CFG.n_mfcc),
+    n_out = CFG.n_mfcc if family == "mfcc" else CFG.n_mels
+    rebuilt = {k: np.zeros((CFG.num_frames(len(v)), n_out),
                            np.float32) for k, v in sigs}
     covered = {k: np.zeros((CFG.num_frames(len(v)),), bool) for k, v in sigs}
     for b, pcs in enumerate(pieces):
@@ -136,9 +143,8 @@ def test_split_packed_features_bit_identical(rng, backend):
                             + pc.n_frames] = True
     for uid, sig in sigs:
         assert covered[uid].all()
-        want, wl, _ = mfcc_model.mfcc_batch_jit(
-            jnp.asarray(sig[None]), jnp.asarray([len(sig)], np.int32),
-            CFG, backend)
+        want, wl, _ = _standalone(family)(
+            jnp.asarray(sig[None]), jnp.asarray([len(sig)], np.int32), CFG)
         np.testing.assert_array_equal(rebuilt[uid],
                                       np.asarray(want)[0, : int(wl[0])])
 
@@ -257,87 +263,48 @@ def test_runner_pack_guards(tmp_path):
                                         pack=True, pitch=True))
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_mfcc_long_bit_identical(rng, backend):
+@pytest.mark.parametrize("row_frames", [128, 511])
+def test_mfcc_long_bit_identical(rng, row_frames):
     """mfcc_long (blocked single-stream front end) == mfcc, bitwise:
     overlapping hop-aligned rows, dropped context slot, true
     pre-emphasis predecessors, reassembly by reshape."""
     x = (rng.standard_normal(7 * 16000 + 1234) * 0.3).astype(np.float32)
-    want = np.asarray(mfcc_model.mfcc_jit(jnp.asarray(x), CFG, backend))
+    want = np.asarray(mfcc_model.mfcc_jit(jnp.asarray(x), CFG))
     got = np.asarray(mfcc_model.mfcc_long_jit(jnp.asarray(x), CFG,
-                                              backend, 128))
+                                              "auto", row_frames))
     assert got.shape == want.shape
     np.testing.assert_array_equal(got, want)
     # deltas applied after reassembly (exact), dither positions match
     cfg_d = CFG.replace(deltas=True, dither=1.0 / 32768.0).validate()
-    want = np.asarray(mfcc_model.mfcc_jit(jnp.asarray(x), cfg_d, backend))
+    want = np.asarray(mfcc_model.mfcc_jit(jnp.asarray(x), cfg_d))
     got = np.asarray(mfcc_model.mfcc_long_jit(jnp.asarray(x), cfg_d,
-                                              backend, 128))
+                                              "auto", row_frames))
     np.testing.assert_array_equal(got, want)
     # short-signal fallback hits the plain path
     xs = x[:8000]
     np.testing.assert_array_equal(
         np.asarray(mfcc_model.mfcc_long_jit(jnp.asarray(xs), CFG,
-                                            backend, 128)),
-        np.asarray(mfcc_model.mfcc_jit(jnp.asarray(xs), CFG, backend)))
+                                            "auto", row_frames)),
+        np.asarray(mfcc_model.mfcc_jit(jnp.asarray(xs), CFG)))
 
 
 def test_mfcc_auto_routes_long_single(rng, monkeypatch):
-    """Single-utterance kernel route: signals past LONG_ROUTE_FRAMES go
-    through the blocked construction (bit-identical, so the assertion
-    is on the routing itself + value equality)."""
-    monkeypatch.setattr(mfcc_model, "LONG_ROUTE_FRAMES", 100)
+    """mfcc() keeps long single signals on the plain hop-block path:
+    the blocked row construction runs only when mfcc_long is called."""
     called = {}
-    orig = mfcc_model.mfcc_long
+    orig = mfcc_model._blocked_from_audio
 
     def spy(*a, **k):
         called["routed"] = True
         return orig(*a, **k)
 
-    monkeypatch.setattr(mfcc_model, "mfcc_long", spy)
-    x = (rng.standard_normal(3 * 16000) * 0.3).astype(np.float32)
-    got = np.asarray(mfcc_model.mfcc(jnp.asarray(x), CFG, "pallas"))
-    assert called.get("routed")
-    want = np.asarray(orig(jnp.asarray(x), CFG, "pallas"))
-    np.testing.assert_array_equal(got, want)
-    # short signals and explicit xla stay on the plain path
-    called.clear()
-    mfcc_model.mfcc(jnp.asarray(x[:16000]), CFG, "pallas")
-    mfcc_model.mfcc(jnp.asarray(x), CFG, "xla")
+    monkeypatch.setattr(mfcc_model, "_blocked_from_audio", spy)
+    x = (rng.standard_normal(60 * 16000) * 0.3).astype(np.float32)
+    got = np.asarray(mfcc_model.mfcc(jnp.asarray(x), CFG))
     assert not called
-
-
-def test_batched_long_route_bit_identical(rng, monkeypatch):
-    """The batched blocked route (long buckets) equals the plain batch
-    path bitwise, ragged lengths and deltas included."""
-    monkeypatch.setattr(mfcc_model, "LONG_ROUTE_FRAMES", 100)
-    from mfcc_tpu.models import logmel as logmel_model
-    lens = [40000, 33000, 17000]
-    xb = np.zeros((3, 40000), np.float32)
-    for i, L in enumerate(lens):
-        xb[i, :L] = (rng.standard_normal(L) * 0.3).astype(np.float32)
-    for cfg in (CFG, CFG.replace(deltas=True).validate()):
-        want, wl, wm = mfcc_model.mfcc_batch(
-            jnp.asarray(xb), jnp.asarray(lens, np.int32), cfg, "xla")
-        got, gl, gm = mfcc_model.mfcc_batch(
-            jnp.asarray(xb), jnp.asarray(lens, np.int32), cfg, "pallas")
-        np.testing.assert_array_equal(np.asarray(gl), np.asarray(wl))
-        # pallas==xla only within kernel envelope; the BLOCKED-route
-        # bitwise claim is pallas-blocked vs pallas-plain:
-        monkeypatch.setattr(mfcc_model, "LONG_ROUTE_FRAMES", 10**9)
-        plain, pl_, _ = mfcc_model.mfcc_batch(
-            jnp.asarray(xb), jnp.asarray(lens, np.int32), cfg, "pallas")
-        monkeypatch.setattr(mfcc_model, "LONG_ROUTE_FRAMES", 100)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(plain))
-    # log-mel batch twin
-    lcfg = FeatureConfig(n_mels=40, n_mfcc=40,
-                         dynamic_range_db=50.0).validate()
-    got = logmel_model.log_mel_batch(
-        jnp.asarray(xb), jnp.asarray(lens, np.int32), lcfg, "pallas")[0]
-    monkeypatch.setattr(mfcc_model, "LONG_ROUTE_FRAMES", 10**9)
-    plain = logmel_model.log_mel_batch(
-        jnp.asarray(xb), jnp.asarray(lens, np.int32), lcfg, "pallas")[0]
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(plain))
+    want = np.asarray(mfcc_model.mfcc_long(jnp.asarray(x), CFG))
+    assert called.get("routed")
+    np.testing.assert_array_equal(got, want)
 
 
 def test_mfcc_long_center_mode(rng):

@@ -44,27 +44,25 @@ def test_data_parallel_mfcc_matches_single_device(rng):
 
 
 def test_data_parallel_pallas_kernels_match_single_device(rng):
-    """The Pallas kernel routes (mfcc v5 raw-DIT, pitch NCCF+Viterbi)
-    must be correct under a data-sharded mesh (interpret mode on the
-    fake pod; the SPMD partitioner handles the pallas_call by
-    replication/gather — correctness coverage for the pod path that
-    backend='auto' takes on real TPU slices)."""
+    """The default routes (MFCC and pitch NCCF+Viterbi) are correct under
+    a data-sharded mesh: the multi-device corpus path matches one
+    device."""
     from mfcc_tpu.config import PitchConfig
     from mfcc_tpu.models import pitch as pitch_model
     xs, lens = _batch(rng)
     m = mesh_lib.make_mesh()
     xd = mesh_lib.shard_batch(xs, m)
     ld = mesh_lib.shard_batch(lens, m)
-    feat_d, fl_d, _ = mfcc_model.mfcc_batch_jit(xd, ld, CFG, "pallas")
+    feat_d, fl_d, _ = mfcc_model.mfcc_batch_jit(xd, ld, CFG, "auto")
     feat, fl, _ = mfcc_model.mfcc_batch_jit(
-        jnp.asarray(xs), jnp.asarray(lens), CFG, "pallas")
+        jnp.asarray(xs), jnp.asarray(lens), CFG, "auto")
     np.testing.assert_allclose(np.asarray(feat_d), np.asarray(feat),
                                atol=3e-5)
     np.testing.assert_array_equal(np.asarray(fl_d), np.asarray(fl))
     pcfg = PitchConfig().validate()
-    pf_d, pl_d, _ = pitch_model.pitch_batch_jit(xd, ld, pcfg, "pallas")
+    pf_d, pl_d, _ = pitch_model.pitch_batch_jit(xd, ld, pcfg, "auto")
     pf, pl, _ = pitch_model.pitch_batch_jit(
-        jnp.asarray(xs), jnp.asarray(lens), pcfg, "pallas")
+        jnp.asarray(xs), jnp.asarray(lens), pcfg, "auto")
     np.testing.assert_allclose(np.asarray(pf_d), np.asarray(pf),
                                atol=3e-4)
     np.testing.assert_array_equal(np.asarray(pl_d), np.asarray(pl))
@@ -144,3 +142,39 @@ def test_host_shard_partition():
 def test_mesh_two_axis():
     m = mesh_lib.make_mesh((4, 2), ("data", "feat"))
     assert m.shape == {"data": 4, "feat": 2}
+
+
+def test_mesh_keeps_device_order():
+    """GPUs of a host are joined all to all: the mesh lays devices out in
+    the order given, with no topology reordering."""
+    devs = jax.devices()[::-1]
+    m = mesh_lib.make_mesh((4, 2), ("data", "feat"), devices=devs)
+    assert list(m.devices.reshape(-1)) == devs
+    assert list(mesh_lib.make_mesh(devices=devs[:4]).devices) == devs[:4]
+
+
+def test_mesh_shape_mismatch_raises():
+    import pytest
+    with pytest.raises(ValueError, match="mesh shape"):
+        mesh_lib.make_mesh((3, 2), ("data", "feat"))
+
+
+def test_dist_initialize_single_process_is_noop(monkeypatch):
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: calls.append(kw))
+    dist.initialize()
+    dist.initialize(num_processes=1)
+    assert calls == []
+
+
+def test_dist_initialize_forwards_local_device_ids(monkeypatch):
+    """One process per GPU: the coordinator, count, id and the GPUs this
+    process owns all reach jax.distributed.initialize."""
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: calls.append(kw))
+    dist.initialize("localhost:12345", 4, 2, local_device_ids=[2])
+    assert calls == [dict(coordinator_address="localhost:12345",
+                          num_processes=4, process_id=2,
+                          local_device_ids=[2])]

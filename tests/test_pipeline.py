@@ -1,6 +1,6 @@
 """Differential tests: JAX pipeline vs the float64 oracle, atol 1e-4.
 
-The TPU analog of the reference's behavior-level differential harness
+The analog of the reference's behavior-level differential harness
 (/root/reference/test/run.sh — compiled output vs expected exit status):
 every stage and the end-to-end pipeline are compared numerically against
 the independent float64 implementation.
@@ -195,12 +195,11 @@ def test_spectrogram_matches_oracle(speechlike):
 
 
 def test_spectrogram_pallas_backend(speechlike):
-    """backend='pallas' (v5 kernel projection='spec', interpret on CPU):
-    same windowed contract vs the oracle; the depermuted packed layout
-    must agree with the XLA path bin-for-bin inside the 50 dB window."""
+    """backend='auto': same windowed contract vs the oracle, and the
+    same bins as the explicit XLA path inside the 50 dB window."""
     from mfcc_tpu.models import spectrogram
     got = np.asarray(spectrogram.log_spectrogram_jit(
-        jnp.asarray(speechlike), CFG, "pallas"))
+        jnp.asarray(speechlike), CFG, "auto"))
     want = oracle.log_spectrogram(speechlike, CFG)
     assert got.shape == want.shape == (98, 257)
     np.testing.assert_allclose(got, want, atol=5e-2)
@@ -237,16 +236,14 @@ def test_cli_spectrogram_flag(tmp_path, rng):
 
 
 def test_spectrogram_pallas_batch_masks(rng):
-    """Kernel-route windowed contract is 2e-4 (the DIT combine's one
-    extra f32 rounding stage vs the direct XLA factorization — the same
-    effect behind the unbounded-log-mel v3 carve-out; on broadband noise
-    the 50 dB-window error measures ~1.3e-4 vs XLA's <1e-4).  Strict
-    1e-4 consumers use backend='xla' (models/spectrogram docstring)."""
+    """Ragged spectrogram batch: the family's 50 dB-window contract
+    (2e-4, models/spectrogram docstring) on every row's valid frames,
+    zeros past each row's end."""
     from mfcc_tpu.models import spectrogram
     xs = (0.3 * rng.standard_normal((2, 16000))).astype(np.float32)
     lens = np.array([16000, 8000], np.int32)
     feat, flens, _ = spectrogram.log_spectrogram_batch_jit(
-        jnp.asarray(xs), jnp.asarray(lens), CFG, "pallas")
+        jnp.asarray(xs), jnp.asarray(lens), CFG, "auto")
     for b in range(2):
         want = oracle.log_spectrogram(
             xs[b][: lens[b]].astype(np.float64), CFG)

@@ -8,6 +8,7 @@ value spread; measured 1.2e-4 worst case on the fixtures).
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -72,7 +73,7 @@ def test_nccf_chunked_matches_unchunked(rng):
     hi = jax.lax.Precision.HIGHEST
     want_b, want_p = pitch_op.nccf(xw, PCFG, mask, precision=hi)
     got_b, got_p = pitch_op._nccf_chunked(xw, PCFG, mask, 128,
-                                          precision=hi, backend="xla")
+                                          precision=hi)
     np.testing.assert_array_equal(np.asarray(got_p), np.asarray(want_p))
     np.testing.assert_allclose(np.asarray(got_b), np.asarray(want_b),
                                atol=2e-6)
@@ -100,147 +101,130 @@ def test_nccf_chunked_matches_unchunked(rng):
     np.testing.assert_allclose(np.asarray(f2), np.asarray(f3), atol=3e-4)
 
 
-# ------------------------------------------------- fused NCCF kernel --
+# ------------------------------------- chunked NCCF / Viterbi variants --
+
+def _nccf_inputs(x, lens, pcfg):
+    from mfcc_tpu.ops.resample import resample
+    xw = resample(jnp.asarray(x), pcfg.sample_rate, pcfg.work_rate)
+    T = pcfg.num_frames(x.shape[1])
+    flens = jnp.minimum(pitch_op.pitch_frame_counts(
+        jnp.asarray(lens, jnp.int32), pcfg), T)
+    mask = jnp.arange(T)[None, :] < flens[:, None]
+    return xw, mask, np.asarray(flens)
+
 
 @pytest.mark.parametrize("pcfg", [
     PCFG,
-    PitchConfig(work_rate=2000).validate(),     # hop 20 -> P=32 (r4)
+    PitchConfig(work_rate=2000).validate(),
     PitchConfig(min_f0=60.0, max_f0=300.0).validate(),
 ])
 def test_fused_nccf_matches_xla(rng, pcfg):
-    """The Pallas NCCF kernel (interpret mode) must match ops/pitch.nccf
-    on the valid region — same correlation-theorem math, VMEM-resident
-    spectra (kernels/fused_nccf docstring)."""
-    from mfcc_tpu.ops.kernels import fused_nccf
-    if not fused_nccf.nccf_kernel_eligible(pcfg):
-        pytest.skip("config not NCCF-kernel eligible")
-    from mfcc_tpu.ops.resample import resample
+    """Chunked NCCF (K-frame chunks folded into the batch axis) equals
+    the unchunked NCCF on the valid region for each config: the plain
+    normalization bitwise, the ballasted one to ballast-mean roundoff."""
     x = _vibrato(rng, n=2 * SR)[None, :]
-    xw = np.asarray(resample(jnp.asarray(x), pcfg.sample_rate,
-                             pcfg.work_rate))
-    T = pcfg.num_frames(x.shape[1])
-    flens = pitch_op.pitch_frame_counts(
-        jnp.asarray([x.shape[1]], jnp.int32), pcfg)
-    mask = jnp.arange(T)[None, :] < jnp.minimum(flens, T)[:, None]
-    want_b, want_p = pitch_op.nccf(jnp.asarray(xw), pcfg, mask)
-    mean_e = pitch_op.mean_frame_energy(jnp.asarray(xw), pcfg, mask)
-    ball = pcfg.ballast * mean_e * mean_e
-    got_b, got_p = fused_nccf.fused_nccf(
-        jnp.asarray(xw), ball, pcfg, T=T, interpret=True)
+    xw, mask, flens = _nccf_inputs(x, [x.shape[1]], pcfg)
+    want_b, want_p = pitch_op.nccf(xw, pcfg, mask)
+    got_b, got_p = pitch_op._nccf_chunked(
+        xw, pcfg, mask, 64, precision=jax.lax.Precision.HIGHEST)
     v = int(flens[0])
+    np.testing.assert_array_equal(np.asarray(got_p)[0, :v],
+                                  np.asarray(want_p)[0, :v])
     np.testing.assert_allclose(np.asarray(got_b)[0, :v],
-                               np.asarray(want_b)[0, :v], atol=2e-5)
-    np.testing.assert_allclose(np.asarray(got_p)[0, :v],
-                               np.asarray(want_p)[0, :v], atol=2e-5)
+                               np.asarray(want_b)[0, :v], atol=2e-6)
 
 
 def test_fused_nccf_multi_tile_and_batch(rng):
-    """Tile boundaries (tile_t < T forces >1 grid step) and batch rows
-    must be seamless."""
-    from mfcc_tpu.ops.kernels import fused_nccf
-    from mfcc_tpu.ops.resample import resample
-    pcfg = PCFG
+    """Chunk seams and ragged batch rows are seamless: chunked NCCF at a
+    chunk size that does not divide T matches the unchunked rows."""
     second = np.pad(_tone_silence(rng), (0, SR))[: 3 * SR]
     x = np.stack([_vibrato(rng, n=3 * SR), second]).astype(np.float32)
-    xw = np.asarray(resample(jnp.asarray(x), pcfg.sample_rate,
-                             pcfg.work_rate))
-    T = pcfg.num_frames(x.shape[1])
-    lens = jnp.asarray([3 * SR, 2 * SR], jnp.int32)
-    flens = jnp.minimum(pitch_op.pitch_frame_counts(lens, pcfg), T)
-    mask = jnp.arange(T)[None, :] < flens[:, None]
-    want_b, _ = pitch_op.nccf(jnp.asarray(xw), pcfg, mask)
-    mean_e = pitch_op.mean_frame_energy(jnp.asarray(xw), pcfg, mask)
-    ball = pcfg.ballast * mean_e * mean_e
-    P = 128 // np.gcd(pcfg.hop_len_w, 128)
-    got_b, _ = fused_nccf.fused_nccf(
-        jnp.asarray(xw), ball, pcfg, T=T, tile_t=8 * int(P),
-        interpret=True)
+    xw, mask, flens = _nccf_inputs(x, [3 * SR, 2 * SR], PCFG)
+    want_b, _ = pitch_op.nccf(xw, PCFG, mask)
+    got_b, _ = pitch_op._nccf_chunked(
+        xw, PCFG, mask, 37, precision=jax.lax.Precision.HIGHEST)
     for i in range(2):
         v = int(flens[i])
         np.testing.assert_allclose(np.asarray(got_b)[i, :v],
-                                   np.asarray(want_b)[i, :v], atol=2e-5)
+                                   np.asarray(want_b)[i, :v], atol=2e-6)
 
 
 def test_fused_viterbi_bit_identical(rng):
-    """The Pallas forward+backtrace must produce BIT-IDENTICAL paths to
-    the XLA scan (f32 min is exact; strict-< running argmin preserves
-    first-minimal-index semantics — kernels/fused_viterbi docstring)."""
-    from mfcc_tpu.ops.kernels import fused_viterbi
-    B, T, n = 3, 150, PCFG.n_lags        # T crosses two TB=64 blocks + tail
+    """Unrolled scan steps are the same math: paths BIT-IDENTICAL to the
+    plain scan, zero-emission (masked) tails included."""
+    B, T, n = 3, 150, PCFG.n_lags
     scores = jnp.asarray(
         0.5 * rng.standard_normal((B, T, n)).astype(np.float32))
-    # zero-emission tail rows, as the masked pipeline produces
     scores = scores.at[1, 100:].set(0.0)
     want = np.asarray(pitch_op.viterbi(scores, PCFG))
-    got = np.asarray(fused_viterbi.viterbi_pallas(scores, PCFG,
-                                                  interpret=True))
+    got = np.asarray(pitch_op.viterbi(scores, PCFG, unroll=8))
     assert got.dtype == want.dtype and got.shape == want.shape
     assert (got == want).all()
 
 
 def test_fused_viterbi_short_and_single_step(rng):
-    from mfcc_tpu.ops.kernels import fused_viterbi
+    """Short sequences (1, 2 and a few dozen steps) match the float64
+    oracle's Viterbi path."""
     for T in (1, 2, 64, 65):
-        scores = jnp.asarray(
-            0.5 * rng.standard_normal((2, T, PCFG.n_lags))
-            .astype(np.float32))
-        want = np.asarray(pitch_op.viterbi(scores, PCFG))
-        got = np.asarray(fused_viterbi.viterbi_pallas(scores, PCFG,
-                                                      interpret=True))
-        assert (got == want).all(), T
+        scores = (0.5 * rng.standard_normal((2, T, PCFG.n_lags))
+                  ).astype(np.float32)
+        got = np.asarray(pitch_op.viterbi(jnp.asarray(scores), PCFG))
+        for b in range(2):
+            want = oracle.pitch_viterbi(scores[b].astype(np.float64), PCFG)
+            assert (got[b] == want).all(), T
 
 
 def test_pitch_pallas_ineligible_config_falls_back(rng):
-    """r4 review finding: explicit backend='pallas' on an NCCF-kernel-
-    ineligible config (hop_len_w 61 -> 128 lane phases, past the 32-cap)
-    must run the XLA path like every other model's dispatch, not raise."""
+    """The pitch stages have one path: "auto" equals "xla" bitwise, and
+    a backend name outside the registry raises instead of running
+    something else."""
     pcfg = PitchConfig(hop_ms=15.25).validate()
-    from mfcc_tpu.ops.kernels import fused_nccf
-    assert not fused_nccf.nccf_kernel_eligible(pcfg)
-    x = _tone_silence(rng)[: SR]
-    feat, flens, _ = pitch_model.pitch_batch_jit(
-        jnp.asarray(x)[None, :], jnp.asarray([x.shape[0]], jnp.int32),
-        pcfg, "pallas")
-    ref, _, _ = pitch_model.pitch_batch_jit(
-        jnp.asarray(x)[None, :], jnp.asarray([x.shape[0]], jnp.int32),
-        pcfg, "xla")
+    x = jnp.asarray(_tone_silence(rng)[: SR])[None, :]
+    lens = jnp.asarray([SR], jnp.int32)
+    feat, _, _ = pitch_model.pitch_batch_jit(x, lens, pcfg, "auto")
+    ref, _, _ = pitch_model.pitch_batch_jit(x, lens, pcfg, "xla")
     np.testing.assert_array_equal(np.asarray(feat), np.asarray(ref))
+    with pytest.raises(ValueError, match="backend"):
+        pitch_model.pitch_batch_jit(x, lens, pcfg, "pallas")
 
 
 def test_viterbi_blocked_short_input_honors_pallas_backend(rng):
-    """r4 review finding: the short-T early return in viterbi_blocked
-    used to drop back to the plain scan even under backend='pallas'."""
+    """Short inputs take the exact scan inside viterbi_blocked, whatever
+    the unroll."""
     scores = jnp.asarray(
         0.5 * rng.standard_normal((2, 100, PCFG.n_lags)).astype(np.float32))
     want = np.asarray(pitch_op.viterbi(scores, PCFG))
-    got = np.asarray(pitch_op.viterbi_blocked(scores, PCFG, block=256,
-                                              warm=128, backend="pallas"))
-    assert (got == want).all()
+    for unroll in (1, 4):
+        got = np.asarray(pitch_op.viterbi_blocked(
+            scores, PCFG, block=256, warm=128, unroll=unroll))
+        assert (got == want).all()
 
 
 def test_viterbi_blocked_pallas_bit_identical(rng):
-    """viterbi_blocked(backend='pallas') folds the chunk axis into the
-    kernel's batch lanes; each chunk's solution is bit-identical to the
-    XLA blocked path."""
-    scores = jnp.asarray(
-        0.5 * rng.standard_normal((1, 900, PCFG.n_lags)).astype(np.float32))
-    want = np.asarray(pitch_op.viterbi_blocked(scores, PCFG, block=256,
-                                               warm=128))
-    got = np.asarray(pitch_op.viterbi_blocked(scores, PCFG, block=256,
-                                              warm=128, backend="pallas"))
-    assert (got == want).all()
+    """viterbi_blocked's window assembly: each chunk's interior equals a
+    plain scan over that chunk's zero-padded window, bitwise."""
+    block, warm = 256, 128
+    T = 900
+    scores = (0.5 * rng.standard_normal((1, T, PCFG.n_lags))
+              ).astype(np.float32)
+    got = np.asarray(pitch_op.viterbi_blocked(
+        jnp.asarray(scores), PCFG, block=block, warm=warm))
+    C = -(-T // block)
+    padded = np.pad(scores, ((0, 0), (warm, C * block - T + warm), (0, 0)))
+    for c in range(C):
+        win = padded[:, c * block: c * block + block + 2 * warm]
+        path = np.asarray(pitch_op.viterbi(jnp.asarray(win), PCFG))
+        lo, hi = c * block, min((c + 1) * block, T)
+        assert (got[0, lo:hi] == path[0, warm: warm + hi - lo]).all(), c
 
 
 def test_pitch_pallas_backend_matches_oracle(rng):
-    """backend='pallas' end-to-end pitch features (kernel NCCF +
-    everything downstream) vs the float64 oracle, same contract as the
-    XLA path."""
+    """backend="auto" end-to-end pitch features vs the float64 oracle."""
     x = _tone_silence(rng)
-    pcfg = PCFG
-    want = oracle.pitch(x.astype(np.float64), pcfg)
+    want = oracle.pitch(x.astype(np.float64), PCFG)
     feat, flens, _ = pitch_model.pitch_batch_jit(
         jnp.asarray(x)[None, :], jnp.asarray([x.shape[0]], jnp.int32),
-        pcfg, "pallas")
+        PCFG, "auto")
     got = np.asarray(feat[0])[: int(flens[0])]
     assert got.shape == want.shape
     for i, nm in enumerate(("pov", "norm", "delta")):

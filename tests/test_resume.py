@@ -23,6 +23,8 @@ from mfcc_tpu import FeatureConfig, runner
 from mfcc_tpu.utils import (htk, kaldi, manifest as manifest_lib, tfrecord,
                             wav)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 class _Boom(RuntimeError):
     pass
@@ -186,7 +188,7 @@ def test_sigkill_worker_resume_equals_uninterrupted(tmp_path, rng, fmt):
         f"runner.run({corpus!r}, FeatureConfig(cmvn=True).validate(), "
         f"runner.RunnerOptions(out_dir={out_dir!r}, batch_size=2, "
         f"out_format={fmt!r}))")
-    env = dict(os.environ, PYTHONPATH="/root/repo", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     proc = subprocess.Popen([sys.executable, "-c", code], env=env,
                             stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

@@ -1,8 +1,6 @@
 """DFT algorithm dispatch: radix-2 DIT GEMM vs direct GEMM vs oracle.
 
-The dit2 path halves the MXU MACs of the spectral stage (the pipeline is
-compute-bound at the precision-mandated matmul rate — docs/performance.md)
-and must stay numerically inside the same 1e-4 end-to-end contract.  Also
+The dit2 path halves the MACs of the spectral stage and must stay numerically inside the same 1e-4 end-to-end contract.  Also
 regression-covers the hop-block tail-truncation bug: input lengths where
 the last frame's samples live in a partial hop block (e.g. 15999 @
 400/160) used to crash (direct) or silently broadcast a stale block
@@ -22,8 +20,8 @@ CFG = FeatureConfig()
 
 
 def test_auto_resolves_to_measured_winner():
-    # direct won the on-device A/B (bench/ab_dft.json); dit2 variants are
-    # opt-in.  Eligibility still gates FORCED dit2 configs.
+    # direct is the default; dit2 variants are opt-in.  Eligibility
+    # still gates FORCED dit2 configs.
     assert spectrum.resolve_dft_algorithm(CFG) == "direct"
     assert spectrum.dit_eligible(CFG)
 

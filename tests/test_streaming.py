@@ -196,93 +196,94 @@ def test_multichunk_multisession_dispatch(speechlike):
                                    atol=1e-5)
 
 
+def _deslot(feats, nvs):
+    """(K, slots, F) scan-path chunk outputs -> contiguous valid frames."""
+    return np.concatenate([np.asarray(feats[k])[: int(nvs[k])]
+                           for k in range(feats.shape[0])])
+
+
 def test_fused_serving_dither_position_consistent(speechlike):
-    """Dither noise is indexed by ABSOLUTE sample position; the fused
-    path's per-session vmapped start offsets must reproduce the scan
-    path's noise stream across dispatch boundaries."""
+    """Dither noise is indexed by ABSOLUTE sample position: B sessions x
+    K chunks per dispatch, over two dispatches, reproduce the batch
+    pipeline dithering each whole signal."""
     cfg = CFG.replace(dither=1.0 / 32768.0).validate()
     B, K, CF = 2, 3, 8
     C = CF * cfg.hop_len
     xs = np.stack([speechlike[: 2 * K * C],
                    np.roll(speechlike, 777)[: 2 * K * C]])
-    st_s = streaming.init_state_batch(B, cfg)
-    st_f = streaming.init_state_batch(B, cfg)
+    st = streaming.init_state_batch(B, cfg)
+    got = [[] for _ in range(B)]
     for d in range(2):
         chunks = jnp.asarray(
             xs[:, d * K * C: (d + 1) * K * C].reshape(B, K, C))
-        st_s, feats_s, nvs = streaming.process_chunks_batch_jit(
-            st_s, chunks, cfg)
-        st_f, feats_f, n_new = streaming.process_chunks_batch_fused_jit(
-            st_f, chunks, cfg)
+        st, feats, nvs = streaming.process_chunks_batch_jit(st, chunks, cfg)
         for b in range(B):
-            rows = [np.asarray(feats_s[b, k])[: int(nvs[b, k])]
-                    for k in range(K)]
-            want = np.concatenate(rows)
-            np.testing.assert_allclose(
-                np.asarray(feats_f[b])[: want.shape[0]], want, atol=5e-5)
+            got[b].append(_deslot(feats[b], nvs[b]))
+    want = np.asarray(mfcc_model.mfcc_batch_jit(
+        jnp.asarray(xs), jnp.full((B,), xs.shape[1], jnp.int32), cfg)[0])
+    for b in range(B):
+        g = np.concatenate(got[b])
+        np.testing.assert_allclose(g, want[b, : g.shape[0]], atol=1e-5)
 
 
 @pytest.mark.parametrize("variant", ["mfcc", "logmel", "plp", "spec"])
 def test_fused_serving_matches_scan_path(speechlike, variant):
-    """process_chunks_batch_fused (v5 kernel serving path) emits the
-    SAME frames as the scan path, contiguously — across two dispatches
-    (startup shift + carry continuity), within the kernel-vs-XLA
-    envelope (~2e-5 cepstral; the documented deviation from streaming
-    bit-equality, see the function docstring).  Log-mel rides the fused
-    path only with a bounded dynamic range (<= 50 dB), matching the
-    batch auto policy (ADVICE r4); spectrogram compares under the
-    family's 50 dB window rule (kernel DIT combine valley class,
-    docs/conventions.md)."""
-    CFG = (FeatureConfig(dynamic_range_db=50.0).validate()
-           if variant == "logmel" else globals()["CFG"])
+    """The serving step (B sessions x K chunks per dispatch, two
+    dispatches for startup shift + carry continuity) emits the batch
+    model's frames for every variant; the carry and frame counts equal
+    the single-session scan's."""
+    from mfcc_tpu.models import logmel as logmel_model
+    from mfcc_tpu.models import plp as plp_model
+    from mfcc_tpu.models import spectrogram as spec_model
+    batch_fn = {"mfcc": mfcc_model.mfcc_batch_jit,
+                "logmel": logmel_model.log_mel_batch_jit,
+                "plp": plp_model.plp_batch_jit,
+                "spec": spec_model.log_spectrogram_batch_jit}[variant]
     B, K, CF = 2, 3, 8
     C = CF * CFG.hop_len
     xs = np.stack([speechlike[: 2 * K * C],
                    np.roll(speechlike, 777)[: 2 * K * C]])
-    st_s = streaming.init_state_batch(B, CFG)
-    st_f = streaming.init_state_batch(B, CFG)
-    for d in range(2):   # two dispatches
+    st = streaming.init_state_batch(B, CFG)
+    got = [[] for _ in range(B)]
+    for d in range(2):
         chunks = jnp.asarray(
             xs[:, d * K * C: (d + 1) * K * C].reshape(B, K, C))
-        st_s, feats_s, nvs = streaming.process_chunks_batch_jit(
-            st_s, chunks, CFG, variant)
-        st_f, feats_f, n_new = streaming.process_chunks_batch_fused_jit(
-            st_f, chunks, CFG, variant)
+        st, feats, nvs = streaming.process_chunks_batch_jit(
+            st, chunks, CFG, variant)
         for b in range(B):
-            # de-slot the scan output to contiguous valid frames
-            rows = [np.asarray(feats_s[b, k])[: int(nvs[b, k])]
-                    for k in range(K)]
-            want = (np.concatenate(rows) if rows
-                    else np.zeros((0, feats_f.shape[-1])))
-            assert int(n_new[b]) == want.shape[0]
-            got = np.asarray(feats_f[b])
-            if variant == "spec" and want.shape[0]:
-                keep = want > (want.max(axis=1, keepdims=True)
-                               - np.log(10.0 ** 5))
-                assert np.abs((got[: want.shape[0]] - want)[keep]).max() \
-                    < 2e-4
-                np.testing.assert_allclose(got[: want.shape[0]], want,
-                                           atol=1e-2)
-            else:
-                np.testing.assert_allclose(got[: want.shape[0]], want,
-                                           atol=5e-5)
-            assert np.all(got[want.shape[0]:] == 0.0)
-        np.testing.assert_allclose(np.asarray(st_f.carry),
-                                   np.asarray(st_s.carry), atol=0)
-        np.testing.assert_array_equal(np.asarray(st_f.frames_done),
-                                      np.asarray(st_s.frames_done))
+            got[b].append(_deslot(feats[b], nvs[b]))
+            s1, _, _ = streaming.process_chunks_jit(
+                streaming.init_state(CFG),
+                jnp.asarray(xs[b, : (d + 1) * K * C].reshape(-1, C)), CFG,
+                variant)
+            np.testing.assert_array_equal(np.asarray(st.carry[b]),
+                                          np.asarray(s1.carry))
+            assert int(st.frames_done[b]) == int(s1.frames_done)
+    want = np.asarray(batch_fn(jnp.asarray(xs),
+                               jnp.full((B,), xs.shape[1], jnp.int32),
+                               CFG)[0])
+    for b in range(B):
+        g = np.concatenate(got[b])
+        w = want[b, : g.shape[0]]
+        if variant == "spec":
+            keep = w > (w.max(axis=1, keepdims=True) - np.log(10.0 ** 5))
+            assert np.abs((g - w)[keep]).max() < 2e-4
+            np.testing.assert_allclose(g, w, atol=1e-2)
+        else:
+            np.testing.assert_allclose(g, w, atol=2e-5)
 
 
 def test_fused_serving_rejects_unbounded_logmel(speechlike):
-    """The fused serving path refuses variant='logmel' with unbounded
-    dynamic range: its accuracy envelope is only established for cepstra
-    and range-bounded log-mel (ADVICE r4; batch auto policy twin)."""
+    """The multi-chunk serving step refuses what the single-chunk step
+    refuses: unknown variants and chunks that are not hop multiples."""
     B, K, CF = 1, 2, 8
     C = CF * CFG.hop_len
-    chunks = jnp.asarray(speechlike[: B * K * C].reshape(B, K, C))
     st = streaming.init_state_batch(B, CFG)
-    with pytest.raises(ValueError, match="dynamic_range_db"):
-        streaming.process_chunks_batch_fused(st, chunks, CFG, "logmel")
+    chunks = jnp.asarray(speechlike[: B * K * C].reshape(B, K, C))
+    with pytest.raises(ValueError, match="variant"):
+        streaming.process_chunks_batch_jit(st, chunks, CFG, "nope")
+    with pytest.raises(ValueError, match="multiple of hop"):
+        streaming.process_chunks_batch_jit(st, chunks[..., :-1], CFG)
 
 
 def test_streaming_logmel_matches_batch(rng):

@@ -1,11 +1,15 @@
 """Trainable front-end: init == classic pipeline, training reduces loss."""
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 
 from mfcc_tpu import FeatureConfig
 from mfcc_tpu.models import trainable, mfcc as mfcc_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 # tiny config keeps CPU compiles fast
@@ -55,7 +59,7 @@ def test_gradients_nonzero(rng):
 
 def test_graft_entry_single_chip():
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import __graft_entry__ as g
     fn, args = g.entry()
     out = jax.jit(fn)(*args)

@@ -156,20 +156,3 @@ def test_wav_info_header_only(tmp_path, rng):
         bad = tmp_path / "bad.wav"
         bad.write_bytes(b"RIFF\0\0\0\0WAVEnope")
         wav.wav_info(bad)
-
-
-def test_chunked_fetch_exact(rng):
-    import jax.numpy as jnp
-    from mfcc_tpu.utils import fetch
-    for shape in [(7,), (1000, 333), (3, 1024, 257), (2_100_000,)]:
-        a = rng.standard_normal(shape).astype(np.float32)
-        got = fetch.chunked_to_numpy(jnp.asarray(a))
-        np.testing.assert_array_equal(got, a)
-
-
-def test_chunked_fetch_opt_out(rng, monkeypatch):
-    import jax.numpy as jnp
-    from mfcc_tpu.utils import fetch
-    monkeypatch.setenv("MFCC_TPU_CHUNKED_FETCH", "0")
-    a = rng.standard_normal((2_000_000,)).astype(np.float32)
-    np.testing.assert_array_equal(fetch.chunked_to_numpy(jnp.asarray(a)), a)
